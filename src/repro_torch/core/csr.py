@@ -1,0 +1,122 @@
+"""CSR graph container and builders (unweighted).
+
+Layout, identical to ``repro.core.csr``:
+  row_ptr : int32[n+1]   start offset of each vertex's adjacency slice
+  col_idx : int32[m]     neighbour ids, sorted within each row
+  src_idx : int32[m]     CSR row expansion (owner of edge slot e), for the
+                         edge-parallel top-down scan and bottom-up fallback
+
+The graph is built on the host with numpy and moved to its device once.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+class CSRGraph(NamedTuple):
+    row_ptr: torch.Tensor  # int32[n+1]
+    col_idx: torch.Tensor  # int32[m]
+    src_idx: torch.Tensor  # int32[m]
+
+    @property
+    def n(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+    @property
+    def m(self) -> int:
+        return self.col_idx.shape[0]
+
+    @property
+    def deg(self) -> torch.Tensor:
+        return self.row_ptr[1:] - self.row_ptr[:-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+
+def _build_csr(src: np.ndarray, dst: np.ndarray, n: int, symmetrize: bool,
+               drop_self_loops: bool, dedup: bool):
+    """Sort/symmetrize/dedup pipeline; returns numpy (row_ptr, dst, src)."""
+    if len(src) * (2 if symmetrize else 1) >= 2 ** 31:
+        # row_ptr/col_idx are int32 and every BFS counter sums degrees in
+        # int32: refuse graphs that would overflow, before any copy.
+        raise ValueError(
+            f"edge count {len(src)} overflows the int32 CSR/counter layout")
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if symmetrize:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    if drop_self_loops:
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+    order = np.argsort(src * n + dst, kind="stable")
+    src, dst = src[order], dst[order]
+    if dedup and len(src):
+        keep = np.ones(len(src), dtype=bool)
+        keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+        src, dst = src[keep], dst[keep]
+    counts = np.bincount(src, minlength=n)
+    row_ptr = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return row_ptr, dst, src
+
+
+def from_numpy_graph(row_ptr: np.ndarray, col_idx: np.ndarray,
+                     src_idx: np.ndarray, device=None) -> CSRGraph:
+    """A ``CSRGraph`` on ``device`` from host arrays, e.g. the JAX
+    package's graph as ``repro.core.csr.to_numpy_adj`` plus ``src_idx``."""
+    device = resolve_device(device)
+
+    def move(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+
+    return CSRGraph(row_ptr=move(row_ptr), col_idx=move(col_idx),
+                    src_idx=move(src_idx))
+
+
+def from_edges(src: np.ndarray, dst: np.ndarray, n: int,
+               symmetrize: bool = True, drop_self_loops: bool = True,
+               dedup: bool = False, device=None) -> CSRGraph:
+    """Build a CSR graph from a directed edge list (host-side, numpy).
+
+    Graph500 graphs are undirected: ``symmetrize`` adds the reverse edges.
+    """
+    device = resolve_device(device)
+    row_ptr, dst, src = _build_csr(src, dst, n, symmetrize, drop_self_loops,
+                                   dedup)
+    return from_numpy_graph(row_ptr, dst, src, device)
+
+
+def to_numpy_adj(g: CSRGraph) -> tuple[np.ndarray, np.ndarray]:
+    """Host copies of (row_ptr, col_idx) for oracle/validator use."""
+    return g.row_ptr.cpu().numpy(), g.col_idx.cpu().numpy()
+
+
+def relabel(g: CSRGraph, perm: np.ndarray) -> CSRGraph:
+    """Relabel vertices: new id of old vertex v is ``perm[v]``."""
+    perm = np.asarray(perm)
+    src = perm[g.src_idx.cpu().numpy()]
+    dst = perm[g.col_idx.cpu().numpy()]
+    return from_edges(src, dst, g.n, symmetrize=False, drop_self_loops=False,
+                      device=g.device)
+
+
+def ell_pad(g: CSRGraph, k_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CSR rows as an ELL slab: int32[n, k_max] neighbour ids (padded with
+    n) + bool[n, k_max] validity. Rows longer than k_max are truncated; the
+    caller handles the residue through the edge-parallel path."""
+    n, m = g.n, g.m
+    pos = torch.arange(k_max, dtype=torch.int32, device=g.device)[None, :]
+    valid = pos < g.deg[:, None]
+    if m == 0:
+        return torch.full((n, k_max), n, dtype=torch.int32,
+                          device=g.device), valid
+    idx = (g.row_ptr[:-1, None] + pos).clamp(0, m - 1)
+    neigh = torch.where(valid, g.col_idx[idx], n)
+    return neigh.to(torch.int32), valid

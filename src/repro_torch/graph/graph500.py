@@ -1,0 +1,114 @@
+"""Graph500 experimental harness (paper §6), serial single-source path.
+
+Runs the benchmark protocol: generate a Kronecker graph, pick 64 random
+roots (degree > 0, as the reference code does), run one BFS per root,
+collect per-root wall time and TEPS, and report the harmonic mean (the
+paper's headline number) plus min/max/mean.
+
+TEPS counts the *undirected* edges of the traversed component (sum of
+degrees of reached vertices / 2), per the Graph500 spec. Each root's time
+ends with a device synchronise, so it covers the whole traversal.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.csr import CSRGraph, to_numpy_adj
+from repro_torch.core.hybrid import bfs
+from repro_torch.device import device_name, resolve_device
+from repro_torch.graph.generator import rmat_graph, sample_roots
+from repro_torch.graph.validate import validate_bfs_tree
+
+
+@dataclass
+class Graph500Result:
+    scale: int
+    edgefactor: int
+    mode: str
+    device: str = ""
+    roots: list[int] = field(default_factory=list)
+    teps: list[float] = field(default_factory=list)
+    times: list[float] = field(default_factory=list)
+    traversed: list[int] = field(default_factory=list)
+
+    @property
+    def harmonic_mean_teps(self) -> float:
+        t = np.asarray([x for x in self.teps if x > 0])
+        return float(len(t) / np.sum(1.0 / t)) if len(t) else 0.0
+
+    @property
+    def aggregate_teps(self) -> float:
+        """Total traversed edges over total wall time."""
+        total_t = float(np.sum(self.times))
+        return float(np.sum(self.traversed)) / total_t if total_t > 0 else 0.0
+
+    def summary(self) -> dict:
+        t = np.asarray(self.teps)
+        return dict(scale=self.scale, edgefactor=self.edgefactor,
+                    mode=self.mode, device=self.device,
+                    nroots=len(self.traversed),
+                    harmonic_mean_teps=self.harmonic_mean_teps,
+                    aggregate_teps=self.aggregate_teps,
+                    mean_teps=float(t.mean()) if len(t) else 0.0,
+                    max_teps=float(t.max()) if len(t) else 0.0,
+                    min_teps=float(t.min()) if len(t) else 0.0,
+                    mean_time=float(np.mean(self.times)) if self.times else 0.0)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_graph500(scale: int, edgefactor: int, mode: str = "hybrid",
+                 num_roots: int = 64, seed: int = 0, validate: bool = False,
+                 alpha: float = 14.0, beta: float = 24.0, max_pos: int = 8,
+                 warmup: bool = True, skip_empty_fallback: bool = True,
+                 td_impl: str = "edge", graph: CSRGraph | None = None,
+                 batched: bool = False, ndev: int = 1,
+                 device=None) -> Graph500Result:
+    """Serial Graph500 run: one BFS per root on ``device`` (the GPU unless
+    the caller passes another; ``graph`` brings its own device)."""
+    if batched:
+        raise NotImplementedError(
+            "batched=True needs the packed multi-source engine, which is not "
+            "ported yet (ROADMAP queue A item 5)")
+    if ndev > 1:
+        raise NotImplementedError(
+            "ndev > 1 needs the sharded multi-source engine, which is not "
+            "ported yet (ROADMAP queue A item 5)")
+    if graph is None:
+        g = rmat_graph(scale, edgefactor, seed, device=resolve_device(device))
+    else:
+        g = graph
+    dev = g.device
+    roots = sample_roots(g, num_roots, seed=seed + 1)
+    res = Graph500Result(scale=scale, edgefactor=edgefactor, mode=mode,
+                         device=device_name(dev),
+                         roots=[int(r) for r in roots])
+
+    def run(r):
+        return bfs(g, r, mode, alpha, beta, max_pos, skip_empty_fallback,
+                   td_impl)
+
+    if warmup and len(roots):
+        run(int(roots[0]))  # first use builds the kernels
+        _sync(dev)
+
+    rp, ci = to_numpy_adj(g) if validate else (None, None)
+    for r in roots:
+        t0 = time.perf_counter()
+        out = run(int(r))
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        edges = int(out.edges_traversed) // 2
+        res.times.append(dt)
+        res.traversed.append(edges)
+        res.teps.append(edges / dt if dt > 0 else 0.0)
+        if validate:
+            validate_bfs_tree(rp, ci, out.parent.cpu().numpy(), int(r))
+    return res

@@ -1,0 +1,59 @@
+"""CUDA wrapper for the bottom-up probe kernel (``csrc/bottom_up_probe.cu``).
+
+Replaces ``repro/kernels/bottom_up_probe/kernel.py::bottom_up_probe_pallas``
+with the same contract: (found int32[n], parent int32[n]). The source file
+notes what bounds the kernel on the H100 and how its design answers it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_entry = None
+
+
+def _launcher():
+    global _entry
+    if _entry is None:
+        fn = common.load_library().bottom_up_probe_launch
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        fn.restype = _I
+        _entry = fn
+    return _entry
+
+
+def bottom_up_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
+                         unvisited: torch.Tensor, parent: torch.Tensor,
+                         col_idx: torch.Tensor, frontier_words: torch.Tensor,
+                         max_pos: int = 8):
+    """Launch the probe. All arguments are contiguous 1-D int32 CUDA
+    tensors: starts/deg/unvisited/parent of n vertices, col_idx of m edge
+    slots, frontier_words of ceil(nf/32) words, all on one device. Raises
+    on anything else."""
+    n = starts.numel()
+    dev = starts.device
+    for name, t in (("starts", starts), ("deg", deg), ("unvisited", unvisited),
+                    ("parent", parent)):
+        common.check_int32_cuda(name, t, n, dev)
+    common.check_int32_cuda("col_idx", col_idx, device=dev)
+    common.check_int32_cuda("frontier_words", frontier_words, device=dev)
+    found = torch.empty_like(parent)
+    parent_out = torch.empty_like(parent)
+    if n == 0:
+        return found, parent_out
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        err = launch(starts.data_ptr(), deg.data_ptr(), unvisited.data_ptr(),
+                     parent.data_ptr(), col_idx.data_ptr(),
+                     frontier_words.data_ptr(), found.data_ptr(),
+                     parent_out.data_ptr(), n, frontier_words.numel(),
+                     int(max_pos), common.sm_count(dev),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    common.check_launch("bottom_up_probe", err)
+    common.LAUNCHES["bottom_up_probe"] += 1
+    return found, parent_out

@@ -1,0 +1,30 @@
+"""Public wrapper for the bottom_up_probe kernel.
+
+``bottom_up_probe`` is what ``repro_torch.core.bottomup`` calls; it matches
+``repro/kernels/bottom_up_probe/ops.py``: (found bool[n], parent int32[n]).
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.bottom_up_probe.kernel import bottom_up_probe_cuda
+from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
+
+
+def bottom_up_probe(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                    frontier_words: torch.Tensor, unvisited: torch.Tensor,
+                    parent: torch.Tensor, max_pos: int = 8):
+    starts = row_ptr[:-1]
+    deg = row_ptr[1:] - row_ptr[:-1]
+    unv = unvisited.to(torch.int32)
+    if col_idx.device.type == "cuda":
+        found, par = bottom_up_probe_cuda(starts, deg, unv, parent, col_idx,
+                                          frontier_words, max_pos)
+    elif col_idx.device.type == "cpu":
+        found, par = bottom_up_probe_ref(starts, deg, unv, parent, col_idx,
+                                         frontier_words, max_pos)
+    else:
+        raise ValueError(f"no bottom_up_probe for device {col_idx.device}")
+    return found != 0, par

@@ -1,0 +1,119 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on the GPU or raise; they never move to the CPU on
+their own."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.csr import from_edges, from_numpy_graph
+from repro_torch.graph.generator import rmat_graph, uniform_random_graph
+from repro_torch.graph.graph500 import run_graph500
+from repro_torch.launch import bfs as launch_bfs
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_files_are_found():
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES
+             if p.is_relative_to(PORT)}
+    assert {"core/hybrid.py", "kernels/common.py",
+            "kernels/bottom_up_probe/kernel.py",
+            "kernels/topdown_scan/kernel.py", "graph/graph500.py",
+            "launch/bfs.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_jax_or_reference_import(path):
+    assert not imported_roots(path) & set(FORBIDDEN)
+
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {blocked!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {src!r})
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+sys.path.insert(0, {repo!r})
+import chip_smoke
+assert not any(m.split(".")[0] in {blocked!r} for m in sys.modules)
+print("ok")
+"""
+
+
+def test_package_imports_with_jax_and_reference_blocked():
+    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN, src=str(REPO / "src"),
+                                  repo=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rmat_graph(6, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uniform_random_graph(10, 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_edges(np.array([0, 1]), np.array([1, 2]), 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_numpy_graph(np.array([0, 1]), np.array([0]), np.array([0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_graph500(6, 4, num_roots=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_bfs.main(["--scale", "6", "--roots", "2"])
+
+
+def test_explicit_cpu_still_runs(no_gpu):
+    g = rmat_graph(6, 4, device="cpu")
+    assert g.device.type == "cpu" and g.row_ptr.dtype == torch.int32
+
+
+def _run_smoke(cwd: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_gpu():
+    out = _run_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,226 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers take the kernels' plain PyTorch versions;
+the Pallas kernels run in interpret mode, as the JAX package's own tests run
+them. Outputs are integer arrays, so the tolerance is exact equality. The
+tests that launch the CUDA kernels need a GPU and skip without one; they
+use neither JAX nor the JAX package, so they also run on a machine that has
+a GPU and no JAX:
+
+  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py -k cuda
+"""
+import importlib
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bitmap
+from repro_torch.core.csr import from_numpy_graph
+from repro_torch.core.hybrid import bfs
+from repro_torch.core.topdown import topdown_step
+from repro_torch.graph.generator import rmat_graph, sample_roots
+from repro_torch.kernels import common
+from repro_torch.kernels.bottom_up_probe.kernel import bottom_up_probe_cuda
+from repro_torch.kernels.bottom_up_probe.ops import bottom_up_probe
+from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
+from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
+from repro_torch.kernels.topdown_scan.ops import topdown_scan
+from repro_torch.kernels.topdown_scan.ref import (topdown_best_ref,
+                                                  topdown_scan_ref)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's pieces these tests hold the port against."""
+    pytest.importorskip("jax")
+    mod = importlib.import_module
+    kernels = mod("repro.kernels")
+    gen = mod("repro.graph.generator")
+    return SimpleNamespace(
+        jnp=mod("jax.numpy"), bitmap=mod("repro.core.bitmap"),
+        rmat=gen.rmat_graph, uniform=gen.uniform_random_graph,
+        probe_pallas=kernels.bottom_up_probe_pallas,
+        scan_pallas=kernels.topdown_scan_pallas,
+        step_pallas=kernels.topdown_step_pallas)
+
+
+def port_graph(jg, device="cpu"):
+    """The JAX package's graph, carried into the port unchanged."""
+    return from_numpy_graph(np.asarray(jg.row_ptr), np.asarray(jg.col_idx),
+                            np.asarray(jg.src_idx), device)
+
+
+def split(n, seed):
+    """The seeded visited/frontier split of tests/test_kernels.py."""
+    rng = np.random.default_rng(seed)
+    vis = rng.random(n) < 0.4
+    fro = (rng.random(n) < 0.25) & ~vis
+    return vis, fro
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("scale,ef,seed", [(8, 4, 0), (9, 8, 1), (10, 16, 2),
+                                           (7, 32, 3)])
+@pytest.mark.parametrize("max_pos", [1, 8])
+def test_bottom_up_probe_plain_matches_pallas(ref, scale, ef, seed, max_pos):
+    jnp = ref.jnp
+    jg = ref.rmat(scale, ef, seed=seed)
+    g = port_graph(jg)
+    vis, fro = split(jg.n, seed)
+    jfw = ref.bitmap.pack(jnp.asarray(fro))
+    par = np.full(jg.n, -1, np.int32)
+    f1, p1 = ref.probe_pallas(jg.row_ptr[:-1], jg.deg, jnp.asarray(~vis),
+                              jnp.asarray(par), jg.col_idx, jfw,
+                              max_pos=max_pos, interpret=True)
+    fw = bitmap.pack(torch.from_numpy(fro))
+    f2, p2 = bottom_up_probe_ref(g.row_ptr[:-1], g.deg,
+                                 torch.from_numpy(~vis).to(torch.int32),
+                                 torch.from_numpy(par), g.col_idx, fw,
+                                 max_pos=max_pos)
+    assert f2.dtype == torch.int32 and p2.dtype == torch.int32
+    np.testing.assert_array_equal(f2.numpy(), np.asarray(f1))
+    np.testing.assert_array_equal(p2.numpy(), np.asarray(p1))
+    # the wrapper the BFS step calls: CPU tensors take the plain version
+    f3, p3 = bottom_up_probe(g.row_ptr, g.col_idx, fw,
+                             torch.from_numpy(~vis), torch.from_numpy(par),
+                             max_pos)
+    assert f3.dtype == torch.bool
+    np.testing.assert_array_equal(f3.numpy(), np.asarray(f1) != 0)
+    np.testing.assert_array_equal(p3.numpy(), np.asarray(p1))
+
+
+@pytest.mark.parametrize("n,m,seed", [(300, 1200, 0), (1024, 8000, 1),
+                                      (77, 300, 2)])
+def test_topdown_scan_plain_matches_pallas(ref, n, m, seed):
+    jnp = ref.jnp
+    jg = ref.uniform(n, m, seed=seed)
+    g = port_graph(jg)
+    vis, fro = split(jg.n, seed)
+    jfw = ref.bitmap.pack(jnp.asarray(fro))
+    jvw = ref.bitmap.pack(jnp.asarray(vis))
+    c1 = ref.scan_pallas(jg.src_idx, jg.col_idx, jfw, jvw, jg.n,
+                         interpret=True)
+    fw, vw = bitmap.pack(torch.from_numpy(fro)), bitmap.pack(
+        torch.from_numpy(vis))
+    c2 = topdown_scan_ref(g.src_idx, g.col_idx, fw, vw, g.n)
+    assert c2.dtype == torch.int32
+    np.testing.assert_array_equal(c2.numpy(), np.asarray(c1))
+    # the fused kernel's plain version is that scan plus the scatter-min
+    best = np.full(jg.n, jg.n, np.int64)
+    np.minimum.at(best, np.asarray(jg.col_idx), np.asarray(c1))
+    np.testing.assert_array_equal(
+        topdown_best_ref(g.src_idx, g.col_idx, fw, vw, g.n).numpy(), best)
+    np.testing.assert_array_equal(
+        topdown_scan(g.src_idx, g.col_idx, fw, vw, g.n).numpy(), best)
+
+
+@pytest.mark.parametrize("n,m,seed", [(300, 1200, 0), (1024, 8000, 1),
+                                      (77, 300, 2)])
+def test_topdown_step_matches_pallas_step(ref, n, m, seed):
+    jnp = ref.jnp
+    jg = ref.uniform(n, m, seed=seed)
+    g = port_graph(jg)
+    vis, fro = split(jg.n, seed)
+    vis |= fro  # visited includes the frontier, as in a BFS
+    par = np.where(vis, np.arange(jg.n), -1).astype(np.int32)
+    out_j = ref.step_pallas(jg, jnp.asarray(fro), jnp.asarray(vis),
+                            jnp.asarray(par))
+    out_t = topdown_step(g, torch.from_numpy(fro), torch.from_numpy(vis),
+                         torch.from_numpy(par))
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_cpu_path_launches_no_kernel():
+    g = rmat_graph(7, 8, seed=5, device="cpu")
+    vis, fro = split(g.n, 5)
+    before = dict(common.LAUNCHES)
+    fw = bitmap.pack(torch.from_numpy(fro))
+    bottom_up_probe(g.row_ptr, g.col_idx, fw, torch.from_numpy(~vis),
+                    torch.full((g.n,), -1, dtype=torch.int32), 8)
+    topdown_scan(g.src_idx, g.col_idx, fw,
+                 bitmap.pack(torch.from_numpy(vis)), g.n)
+    assert common.LAUNCHES == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never falls back: CPU tensors are refused before
+    anything is built or launched."""
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bottom_up_probe_cuda(x, x, x, x, x, x, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        topdown_scan_cuda(x, x, x, x, 4)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(common.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        common.build_kernels()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_sources_and_flags():
+    names = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
+    assert names == ["bottom_up_probe.cu", "topdown_scan.cu"]
+    assert "arch=compute_90a,code=sm_90a" in common.NVCC_FLAGS
+    assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
+
+
+@pytest.mark.parametrize("max_pos", [1, 8, 32])
+def test_bottom_up_probe_cuda_matches_plain(cuda_device, max_pos):
+    g = rmat_graph(12, 16, seed=max_pos, device=cuda_device)
+    vis, fro = split(g.n, max_pos)
+    fw = bitmap.pack(torch.from_numpy(fro).to(cuda_device))
+    unv = torch.from_numpy(~vis).to(cuda_device, torch.int32)
+    par = torch.full((g.n,), -1, dtype=torch.int32, device=cuda_device)
+    args = (g.row_ptr[:-1], g.deg, unv, par, g.col_idx, fw, max_pos)
+    before = common.LAUNCHES["bottom_up_probe"]
+    k = bottom_up_probe_cuda(*args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["bottom_up_probe"] == before + 1
+    for a, b in zip(k, bottom_up_probe_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topdown_scan_cuda_matches_plain(cuda_device, seed):
+    g = rmat_graph(12, 16, seed=seed, device=cuda_device)
+    vis, fro = split(g.n, seed)
+    fw = bitmap.pack(torch.from_numpy(fro).to(cuda_device))
+    vw = bitmap.pack(torch.from_numpy(vis).to(cuda_device))
+    args = (g.src_idx, g.col_idx, fw, vw, g.n)
+    before = common.LAUNCHES["topdown_scan"]
+    k = topdown_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["topdown_scan"] == before + 1
+    assert torch.equal(k, topdown_best_ref(*args))
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "topdown", "bottomup_simd",
+                                  "bottomup_nosimd", "hybrid_nosimd"])
+def test_bfs_on_gpu_matches_cpu(cuda_device, mode):
+    """The whole slice on the card: every BFSResult field equals the CPU
+    run's, and the kernels the mode needs were launched."""
+    g_cpu = rmat_graph(12, 16, seed=7, device="cpu")
+    g_gpu = rmat_graph(12, 16, seed=7, device=cuda_device)
+    common.reset_launches()
+    for root in sample_roots(g_cpu, 2, seed=8):
+        want = bfs(g_cpu, int(root), mode)
+        got = bfs(g_gpu, int(root), mode)
+        for name, a, b in zip(want._fields, got, want):
+            assert torch.equal(a.cpu(), b), name
+    if mode in ("hybrid", "topdown", "hybrid_nosimd"):
+        assert common.LAUNCHES["topdown_scan"] > 0
+    if mode in ("hybrid", "bottomup_simd"):
+        assert common.LAUNCHES["bottom_up_probe"] > 0
