@@ -16,6 +16,16 @@ prints one JSON line:
   main     the serial Graph500 harness (hybrid, all roots) through
            run_graph500, with the launch counts of that run alone, then the
            validator, the numpy oracle and the cross-mode checks;
+  msbfs_kernel    the multi-source kernels (msbfs_probe, segment_or)
+           against their plain versions on seeded random lane words (W = 2
+           and 8) and on every layer state of one batched sweep;
+  batched_layers  where that sweep (one lane per root) spends its time,
+           layer by layer, with the host syncs of a step, then the parent
+           derivation;
+  batched  the batched Graph500 harness (run_graph500 batched=True, 64
+           lanes) with the launch counts of that run alone, then every
+           lane against the serial bfs, traces, validator and oracle, and
+           a run with 4x the roots through the same 64 lanes (refills);
   kernels  one entry per ported kernel (counts, errors, times, bounds).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
@@ -30,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -40,7 +51,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.core import bitmap  # noqa: E402
 from repro_torch.core.bottomup import _fallback_scan, bottomup_simd_step  # noqa: E402
 from repro_torch.core.csr import to_numpy_adj  # noqa: E402
-from repro_torch.core.hybrid import MAX_TRACE, bfs  # noqa: E402
+from repro_torch.core.hybrid import (ALPHA_DEFAULT, BETA_DEFAULT,  # noqa: E402
+                                     MAX_TRACE, bfs)
+from repro_torch.core.msbfs import (_derive_parents, _plan, _refill,  # noqa: E402
+                                    msbfs_engine_enqueue, msbfs_engine_idle,
+                                    msbfs_engine_init, msbfs_engine_result,
+                                    msbfs_engine_step, msbfs_pipelined)
+from repro_torch.core.packed import (lane_counters, pack_lanes_np,  # noqa: E402
+                                     unpack_lanes)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
 from repro_torch.graph.generator import rmat_graph, sample_roots  # noqa: E402
@@ -51,6 +69,12 @@ from repro_torch.kernels.bottom_up_probe.kernel import (  # noqa: E402
     bottom_up_probe_cuda)
 from repro_torch.kernels.bottom_up_probe.ref import (  # noqa: E402
     bottom_up_probe_ref, probe_rounds)
+from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda  # noqa: E402
+from repro_torch.kernels.msbfs_probe.ref import (  # noqa: E402
+    msbfs_probe_ref, probe_rounds as lane_probe_rounds)
+from repro_torch.kernels.segment_or.kernel import (  # noqa: E402
+    segment_or_rows_cuda)
+from repro_torch.kernels.segment_or.ref import segment_or_rows_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
 
@@ -70,7 +94,17 @@ KERNELS = {
     "topdown_scan": dict(
         route="cuda", source="src/repro_torch/csrc/topdown_scan.cu",
         replaces="src/repro/kernels/topdown_scan/kernel.py:39"),
+    "msbfs_probe": dict(
+        route="cuda", source="src/repro_torch/csrc/msbfs_probe.cu",
+        replaces="src/repro/kernels/msbfs_probe/kernel.py:72"),
+    "segment_or": dict(
+        route="cuda", source="src/repro_torch/csrc/segment_or.cu",
+        replaces="src/repro/core/packed.py:113 (segment_or, an XLA "
+                 "associative_scan; no Pallas kernel)"),
 }
+SERIAL_KERNELS = ("bottom_up_probe", "topdown_scan")
+BATCHED_KERNELS = ("msbfs_probe", "segment_or")
+LANES = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -166,7 +200,7 @@ def compare_kernels(g, out, dev, reps, flush):
     par0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     cases = [("random", fro, vis, par0)] + [
         (f"layer{layer}", f, v, p) for layer, f, v, p in layer_states(g, out)]
-    rec = {name: dict(cases=0, max_abs_err=0) for name in KERNELS}
+    rec = {name: dict(cases=0, max_abs_err=0) for name in SERIAL_KERNELS}
     for label, f, v, p in cases:
         fw, vw = bitmap.pack(f), bitmap.pack(v)
         unv = (~v).to(torch.int32)
@@ -267,8 +301,8 @@ def run_main_path(g, args):
                        num_roots=args.roots, seed=SEED, graph=g)
     seconds = time.perf_counter() - t0
     launches = dict(common.LAUNCHES)
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in SERIAL_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the main path")
 
     rp, ci = to_numpy_adj(g)
     roots = res.roots
@@ -301,6 +335,298 @@ def run_main_path(g, args):
     check(all(t > 0 for t in res.teps), "a root traversed no edges")
     check(n_layers < MAX_TRACE, "BFS did not finish within the trace buffer")
     return res, launches
+
+
+def lane_probe_cost(n, w, probes, words):
+    # reads: starts + deg, the need words, one neighbour id per round in
+    # which any plane gathers, each gathered frontier word (at most the
+    # whole frontier); writes: acc
+    nbytes = 8 * n + 8 * n * w + 4 * probes + 4 * min(words, n * w)
+    ops = 4 * n * w + 3 * words
+    return bound_ms(nbytes, ops)
+
+
+def row_or_cost(n, w, edges, has_base, has_active, nf):
+    # reads: row_ptr, the row flags, each edge slot's neighbour id once,
+    # each row's frontier words once (at most the whole frontier), mask and
+    # base; writes: out
+    nbytes = (4 * (n + 1) + (4 * n if has_active else 0) + 4 * edges
+              + 4 * min(edges, nf) * w + 4 * n * w * (3 if has_base else 2))
+    ops = 2 * edges * w + 2 * n * w
+    return bound_ms(nbytes, ops)
+
+
+def random_lanes(n, w, seed, dev):
+    """Seeded random lane words: visited at a quarter of the bits, the
+    frontier at about a fifth outside it."""
+    rng = np.random.default_rng(seed)
+
+    def words():
+        return torch.from_numpy(rng.integers(0, 2 ** 32, (n, w),
+                                             dtype=np.uint32).view(np.int32))
+    vis = (words() & words()).to(dev)
+    fro = (words() & words()).to(dev) & ~vis
+    return fro, vis
+
+
+class LaneKernelCheck:
+    """msbfs_probe and segment_or against their plain versions; keeps the
+    cases, the largest difference, and the timed input's record."""
+
+    def __init__(self, g):
+        self.g = g
+        self.rec = {name: dict(cases=0, max_abs_err=0)
+                    for name in BATCHED_KERNELS}
+        self.deg = g.deg
+
+    def _agree(self, name, label, k, r):
+        err = max_abs_err([(k, r)])
+        check(err == 0 and torch.equal(k, r),
+              f"{name} differs from its plain version on {label}")
+        self.rec[name]["cases"] += 1
+        self.rec[name]["max_abs_err"] = max(self.rec[name]["max_abs_err"],
+                                            err)
+
+    def probe_args(self, frontier, need):
+        g = self.g
+        return (g.row_ptr[:-1], self.deg, need, g.col_idx, frontier, MAX_POS)
+
+    def fallback_args(self, frontier, need, acc):
+        g = self.g
+        found = acc & need
+        residue = (((need & ~found) != 0).any(dim=-1)
+                   & (self.deg > MAX_POS)).to(torch.int32)
+        return (g.row_ptr, g.col_idx, frontier, need, None, found, residue,
+                MAX_POS)
+
+    def topdown_args(self, frontier, visited, td_sel):
+        g = self.g
+        return (g.row_ptr, g.col_idx, frontier, ~visited, td_sel, None, None,
+                0)
+
+    def bottomup(self, label, frontier, need):
+        """Probe, then the fallback form of the row-OR; returns the args."""
+        pa = self.probe_args(frontier, need)
+        acc = msbfs_probe_cuda(*pa)
+        self._agree("msbfs_probe", label, acc, msbfs_probe_ref(*pa))
+        fa = self.fallback_args(frontier, need, acc)
+        self._agree("segment_or", f"{label} (bottom-up fallback)",
+                    segment_or_rows_cuda(*fa), segment_or_rows_ref(*fa))
+        return pa, fa
+
+    def topdown(self, label, frontier, visited, td_sel):
+        ta = self.topdown_args(frontier, visited, td_sel)
+        self._agree("segment_or", f"{label} (top-down)",
+                    segment_or_rows_cuda(*ta), segment_or_rows_ref(*ta))
+        return ta
+
+
+def lane_kernel_random(chk, dev, reps, flush):
+    """Both kernels on seeded random lane words at W = 2 (timed) and 8."""
+    g = chk.g
+    n, m = g.n, g.m
+    for w in (LANES // 32, 8):
+        fro, vis = random_lanes(n, w, SEED + w, dev)
+        need = ~vis
+        all_lanes = torch.full((w,), -1, dtype=torch.int32, device=dev)
+        pa, fa = chk.bottomup(f"random W={w}", fro, need)
+        ta = chk.topdown(f"random W={w}", fro, vis, all_lanes)
+        torch.cuda.synchronize()
+        if w != LANES // 32:
+            continue
+        probes = words = 0
+        for live, _ in lane_probe_rounds(*pa):
+            probes += int(live.any(dim=-1).sum())
+            words += int(live.sum())
+        cost = lane_probe_cost(n, w, probes, words)
+        chk.rec["msbfs_probe"].update(
+            ms=time_ms(lambda: msbfs_probe_cuda(*pa), reps, flush),
+            plain_ms=time_ms(lambda: msbfs_probe_ref(*pa), reps, flush),
+            bound_ms=cost[0], bound_by=cost[1], library_ms=None,
+            timed_input=dict(case=f"random W={w}", vertices=n, probes=probes,
+                             plane_gathers=words))
+        # the top-down form reads every edge slot; its library yardstick is
+        # one segment_reduce over the edge contributions unpacked to bits,
+        # prepared outside the timing
+        bits = unpack_lanes(fro[g.col_idx], 32 * w).to(torch.float32)
+        lengths = g.deg.to(torch.int64)
+
+        def library():
+            return torch.segment_reduce(bits, "max", lengths=lengths,
+                                        axis=0, unsafe=True, initial=0.0)
+
+        lib = library()
+        check(torch.equal(lib.to(torch.bool), unpack_lanes(
+            segment_or_rows_cuda(*ta[:3], torch.full_like(vis, -1),
+                                 *ta[4:]), 32 * w)),
+              "the library yardstick computes another function")
+        cost = row_or_cost(n, w, m, False, False, n)
+        chk.rec["segment_or"].update(
+            ms=time_ms(lambda: segment_or_rows_cuda(*ta), reps, flush),
+            plain_ms=time_ms(lambda: segment_or_rows_ref(*ta), reps, flush),
+            library_ms=time_ms(library, reps, flush),
+            bound_ms=cost[0], bound_by=cost[1],
+            timed_input=dict(case=f"random W={w} (top-down form)",
+                             rows=n, edge_slots=m))
+        del bits, lib
+
+
+def syncs_of(fn) -> int:
+    """Host syncs ``fn`` makes, as torch's sync debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(c.message) for c in caught)
+
+
+def batched_sweep(g, roots, chk, reps, flush):
+    """One sweep of the pipelined engine, one lane per root, stepped layer
+    by layer. Each layer state goes through both kernels against their
+    plain versions, and is timed: the counters' read-back, the step, the
+    kernels. Returns the per-layer rows and the drained state."""
+    n = g.n
+    s = msbfs_engine_enqueue(msbfs_engine_init(g, len(roots), LANES), roots)
+    rows = []
+    while not msbfs_engine_idle(s):
+        s = _refill(g, s, True)  # seats the roots on the first layer
+        topdown, live = _plan(s, "hybrid", n, ALPHA_DEFAULT, BETA_DEFAULT)
+        td, bu = topdown & live, ~topdown & live
+        td_sel = torch.from_numpy(pack_lanes_np(td)).to(g.device)
+        bu_sel = torch.from_numpy(pack_lanes_np(bu)).to(g.device)
+        f, v = s.frontier, s.visited
+        label = f"sweep layer {s.sweep_layers}"
+        row = dict(layer=s.sweep_layers,
+                   active=int((s.lane_qidx < s.capacity).sum()),
+                   td_lanes=int(td.sum()), bu_lanes=int(bu.sum()),
+                   v_f=int(s.counters[1].sum()))
+
+        def counters():
+            torch.stack(lane_counters(g, unpack_lanes(f, LANES),
+                                      unpack_lanes(v, LANES))).cpu()
+
+        row["counters_ms"] = wall_ms(counters, reps)
+        row["syncs"] = syncs_of(lambda: msbfs_engine_step(g, s))
+        row["step_ms"] = wall_ms(lambda: msbfs_engine_step(g, s), reps)
+        kernel_ms = 0.0
+        if bu.any():
+            pa, fa = chk.bottomup(label, f, ~v & bu_sel)
+            row["fallback_rows"] = int(fa[6].sum())
+            row["probe_ms"] = time_ms(lambda: msbfs_probe_cuda(*pa), reps,
+                                      flush)
+            row["fallback_ms"] = time_ms(lambda: segment_or_rows_cuda(*fa),
+                                         reps, flush)
+            kernel_ms += row["probe_ms"] + row["fallback_ms"]
+        if td.any():
+            ta = chk.topdown(label, f, v, td_sel)
+            row["topdown_ms"] = time_ms(lambda: segment_or_rows_cuda(*ta),
+                                        reps, flush)
+            kernel_ms += row["topdown_ms"]
+        row["kernel_ms"] = kernel_ms
+        rows.append(row)
+        s = msbfs_engine_step(g, s)
+    return rows, s
+
+
+def batched_layers(g, roots, chk, reps, flush):
+    rows, s = batched_sweep(g, roots, chk, reps, flush)
+    depth = msbfs_engine_result(g, s, derive_parents=False).depth
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _derive_parents(g, depth, roots)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    derive_ms = wall_ms(lambda: _derive_parents(g, depth, roots),
+                        max(reps // 2, 2))
+    emit("batched_layers", roots=len(roots), lanes=LANES, rows=rows,
+         layers=len(rows),
+         step_ms_total=sum(r["step_ms"] for r in rows),
+         kernel_ms_total=sum(r["kernel_ms"] for r in rows),
+         syncs_per_layer=[r["syncs"] for r in rows],
+         derive_parents_ms=derive_ms, derive_parents_peak_bytes=peak)
+    return len(rows)
+
+
+def run_batched_path(g, args, serial_res):
+    """The batched Graph500 harness through the port's entry point, then
+    its checks. Returns the launches of the harness run."""
+    roots = sample_roots(g, args.roots, seed=SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    res = run_graph500(args.scale, EDGEFACTOR, mode="hybrid",
+                       num_roots=args.roots, seed=SEED, graph=g,
+                       batched=True, lanes=LANES)
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in BATCHED_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was not launched on the batched path")
+    check(res.roots == [int(r) for r in roots], "harness sampled other roots")
+
+    out = msbfs_pipelined(g, roots, "hybrid", lanes=LANES)
+    for r_i, r in enumerate(roots):
+        want = bfs(g, int(r), "hybrid")
+        check(torch.equal(out.depth[:, r_i], want.depth),
+              f"lane {r_i} depth differs from serial bfs")
+        check(torch.equal(out.parent[:, r_i], want.parent),
+              f"lane {r_i} parent differs from serial bfs")
+        if r_i < 4:
+            for name in ("num_layers", "edges_traversed"):
+                check(int(getattr(out, name)[r_i])
+                      == int(getattr(want, name)),
+                      f"lane {r_i} {name} differs from serial bfs")
+            for name in ("trace_dir", "trace_vf", "trace_ef", "trace_eu"):
+                check(torch.equal(getattr(out, name)[:, r_i],
+                                  getattr(want, name)),
+                      f"lane {r_i} {name} differs from serial bfs")
+    rp, ci = to_numpy_adj(g)
+    parent = out.parent.cpu().numpy()
+    for r_i, r in enumerate(roots[:8]):
+        validate_bfs_tree(rp, ci, parent[:, r_i], int(r))
+    pref, dref = bfs_reference(rp, ci, int(roots[0]))
+    check(np.array_equal(parent[:, 0], pref)
+          and np.array_equal(out.depth[:, 0].cpu().numpy(), dref),
+          "lane 0 differs from bfs_reference")
+    del out, parent
+
+    # 4x the roots through the same lanes: lanes refill from the queue
+    many = 4 * args.roots
+    torch.cuda.reset_peak_memory_stats()
+    res4 = run_graph500(args.scale, EDGEFACTOR, mode="hybrid",
+                        num_roots=many, seed=SEED, graph=g, batched=True,
+                        lanes=LANES)
+    peak4 = torch.cuda.max_memory_allocated()
+    roots4 = sample_roots(g, many, seed=SEED + 1)
+    depth4 = msbfs_pipelined(g, roots4, "hybrid", lanes=LANES,
+                             derive_parents=False).depth
+    for r_i, r in enumerate(roots4):
+        check(torch.equal(depth4[:, r_i], bfs(g, int(r), "hybrid").depth),
+              f"refill run: lane {r_i} depth differs from serial bfs")
+    del depth4
+
+    serial = serial_res.aggregate_teps
+    emit("batched", entry="repro_torch.graph.graph500.run_graph500",
+         seconds=seconds, launches=launches, sweep_seconds=res.times[0],
+         peak_mem_bytes=peak, serial_aggregate_teps=serial,
+         aggregate_over_serial=res.aggregate_teps / serial,
+         depth_parent_checked_lanes=len(roots), trace_checked_lanes=4,
+         validated_lanes=min(8, len(roots)), oracle_lane=0,
+         refill=dict(roots=many, lanes=LANES, sweep_seconds=res4.times[0],
+                     aggregate_teps=res4.aggregate_teps,
+                     harmonic_mean_teps=res4.harmonic_mean_teps,
+                     peak_mem_bytes=peak4, depth_checked_lanes=many),
+         **res.summary())
+    check(all(t > 0 for t in res.teps), "a lane traversed no edges")
+    return launches
+
 
 
 def main(argv=None) -> int:
@@ -342,18 +668,34 @@ def main(argv=None) -> int:
     states = bfs(g, probe_root, "hybrid")
     rec = compare_kernels(g, states, dev, args.reps, flush)
     layer_breakdown(g, probe_root, states, max(args.reps // 4, 3), flush)
-    del flush
     torch.cuda.reset_peak_memory_stats()
 
     res, launches = run_main_path(g, args)
 
-    kernels = [dict(name=name, **KERNELS[name], launches=launches[name],
-                    launches_per_bfs=launches[name] / (len(res.roots) + 1),
-                    max_abs_err=rec[name]["max_abs_err"], ms=rec[name]["ms"],
-                    plain_ms=rec[name]["plain_ms"],
-                    bound_ms=rec[name]["bound_ms"],
-                    bound_by=rec[name]["bound_by"], library_ms=None)
-               for name in KERNELS]
+    chk = LaneKernelCheck(g)
+    lane_kernel_random(chk, dev, args.reps, flush)
+    sweep_roots = sample_roots(g, args.roots, seed=SEED + 1)
+    layers = batched_layers(g, sweep_roots, chk, max(args.reps // 4, 3),
+                            flush)
+    for name, r in chk.rec.items():
+        emit("msbfs_kernel", name=name, bit_equal=True, **r)
+    del flush
+    batched_launches = run_batched_path(g, args, res)
+
+    kernels = []
+    for name in KERNELS:
+        serial = name in SERIAL_KERNELS
+        r = rec[name] if serial else chk.rec[name]
+        count = launches[name] if serial else batched_launches[name]
+        # the serial harness runs one BFS per root plus a warm-up root; the
+        # batched one runs the sweep twice (warm-up and timed)
+        per = (dict(launches_per_bfs=count / (len(res.roots) + 1)) if serial
+               else dict(launches_per_sweep_layer=count / (2 * layers)))
+        kernels.append(dict(
+            name=name, **KERNELS[name], launches=count, **per,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms")))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,66 @@
+"""CUDA wrapper for the word-packed probe kernel (``csrc/msbfs_probe.cu``).
+
+Replaces ``repro/kernels/msbfs_probe/kernel.py::msbfs_probe_pallas`` with
+the same contract: acc int32[n, W], the OR of the first ``max_pos``
+neighbours' frontier words per vertex and word plane, retired per plane.
+The source file notes what bounds the kernel on the H100 and how its
+design answers it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_entry = None
+
+
+def _launcher():
+    global _entry
+    if _entry is None:
+        fn = common.load_library().msbfs_probe_launch
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
+                       _I, _I, _P]
+        fn.restype = _I
+        _entry = fn
+    return _entry
+
+
+def msbfs_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
+                     need_words: torch.Tensor, col_idx: torch.Tensor,
+                     frontier_words: torch.Tensor,
+                     max_pos: int = 8) -> torch.Tensor:
+    """Launch the probe. starts/deg are int32[n], need_words int32[n, W],
+    col_idx int32[m], frontier_words int32[nf, W] with nf >= n, all
+    contiguous on one CUDA device. Raises on anything else."""
+    if need_words.dim() != 2:
+        raise ValueError("need_words must be 2-D [n, W]")
+    n, w = need_words.shape
+    dev = starts.device
+    common.check_int32_cuda("starts", starts, n, dev)
+    common.check_int32_cuda("deg", deg, n, dev)
+    common.check_int32_cuda("need_words", need_words, n * w, dev, width=w)
+    common.check_int32_cuda("col_idx", col_idx, device=dev)
+    common.check_int32_cuda("frontier_words", frontier_words, device=dev,
+                            width=w)
+    nf = frontier_words.shape[0]
+    if nf < n:
+        raise ValueError(f"frontier_words has {nf} rows, fewer than n={n}")
+    m = col_idx.numel()
+    acc = torch.zeros_like(need_words)
+    if n == 0 or w == 0 or m == 0:
+        return acc
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        err = launch(starts.data_ptr(), deg.data_ptr(), need_words.data_ptr(),
+                     col_idx.data_ptr(), frontier_words.data_ptr(),
+                     acc.data_ptr(), n, nf, w, m, int(max_pos),
+                     common.sm_count(dev),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    common.check_launch("msbfs_probe", err)
+    common.LAUNCHES["msbfs_probe"] += 1
+    return acc

@@ -36,10 +36,11 @@ def imported_roots(path: Path) -> set[str]:
 def test_port_files_are_found():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES
              if p.is_relative_to(PORT)}
-    assert {"core/hybrid.py", "kernels/common.py",
-            "kernels/bottom_up_probe/kernel.py",
-            "kernels/topdown_scan/kernel.py", "graph/graph500.py",
-            "launch/bfs.py"} <= names
+    assert {"core/hybrid.py", "core/packed.py", "core/msbfs.py",
+            "kernels/common.py", "kernels/bottom_up_probe/kernel.py",
+            "kernels/topdown_scan/kernel.py", "kernels/msbfs_probe/kernel.py",
+            "kernels/segment_or/kernel.py", "graph/graph500.py",
+            "launch/bfs.py", "benchmarks/msbfs_teps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

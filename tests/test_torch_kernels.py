@@ -19,12 +19,19 @@ import torch
 from repro_torch.core import bitmap
 from repro_torch.core.csr import from_numpy_graph
 from repro_torch.core.hybrid import bfs
+from repro_torch.core.msbfs import msbfs_pipelined
 from repro_torch.core.topdown import topdown_step
 from repro_torch.graph.generator import rmat_graph, sample_roots
 from repro_torch.kernels import common
 from repro_torch.kernels.bottom_up_probe.kernel import bottom_up_probe_cuda
 from repro_torch.kernels.bottom_up_probe.ops import bottom_up_probe
 from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
+from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda
+from repro_torch.kernels.msbfs_probe.ops import msbfs_probe
+from repro_torch.kernels.msbfs_probe.ref import msbfs_probe_ref
+from repro_torch.kernels.segment_or.kernel import segment_or_rows_cuda
+from repro_torch.kernels.segment_or.ops import segment_or_rows
+from repro_torch.kernels.segment_or.ref import segment_or_rows_ref
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
 from repro_torch.kernels.topdown_scan.ops import topdown_scan
 from repro_torch.kernels.topdown_scan.ref import (topdown_best_ref,
@@ -58,6 +65,17 @@ def split(n, seed):
     vis = rng.random(n) < 0.4
     fro = (rng.random(n) < 0.25) & ~vis
     return vis, fro
+
+
+def lane_split(n, w, seed, device="cpu"):
+    """Seeded random lane words int32[n, w]: (frontier, visited)."""
+    rng = np.random.default_rng(seed)
+
+    def words():
+        return torch.from_numpy(rng.integers(0, 2 ** 32, (n, w),
+                                             dtype=np.uint32).view(np.int32))
+    vis = words() & words()
+    return (words() & ~vis).to(device), vis.to(device)
 
 
 @pytest.fixture
@@ -148,6 +166,9 @@ def test_cpu_path_launches_no_kernel():
                     torch.full((g.n,), -1, dtype=torch.int32), 8)
     topdown_scan(g.src_idx, g.col_idx, fw,
                  bitmap.pack(torch.from_numpy(vis)), g.n)
+    fro_w, vis_w = lane_split(g.n, 2, 5)
+    msbfs_probe(g.row_ptr, g.col_idx, fro_w, ~vis_w, 8)
+    segment_or_rows(g.row_ptr, g.col_idx, fro_w, ~vis_w)
     assert common.LAUNCHES == before
 
 
@@ -159,6 +180,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bottom_up_probe_cuda(x, x, x, x, x, x, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         topdown_scan_cuda(x, x, x, x, 4)
+    words = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        msbfs_probe_cuda(x, x, words, x, words, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        segment_or_rows_cuda(torch.zeros(5, dtype=torch.int32), x, words,
+                             words)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -172,7 +199,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     names = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
-    assert names == ["bottom_up_probe.cu", "topdown_scan.cu"]
+    assert names == ["bottom_up_probe.cu", "msbfs_probe.cu", "segment_or.cu",
+                     "topdown_scan.cu"]
     assert "arch=compute_90a,code=sm_90a" in common.NVCC_FLAGS
     assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
 
@@ -224,3 +252,45 @@ def test_bfs_on_gpu_matches_cpu(cuda_device, mode):
         assert common.LAUNCHES["topdown_scan"] > 0
     if mode in ("hybrid", "bottomup_simd"):
         assert common.LAUNCHES["bottom_up_probe"] > 0
+
+
+@pytest.mark.parametrize("w", [1, 2, 8])
+def test_lane_kernels_cuda_match_plain(cuda_device, w):
+    """msbfs_probe (raw acc) and both forms of the row-OR, bit-equal to
+    their plain versions, with a frontier of more rows than the graph."""
+    g = rmat_graph(12, 16, seed=w, device=cuda_device)
+    fro, vis = lane_split(g.n + 37, w, w, cuda_device)
+    need = ~vis[:g.n]
+    args = (g.row_ptr[:-1], g.deg, need, g.col_idx, fro, 8)
+    before = dict(common.LAUNCHES)
+    acc = msbfs_probe_cuda(*args)
+    assert torch.equal(acc, msbfs_probe_ref(*args))
+    found = acc & need
+    residue = ((need & ~found) != 0).any(dim=-1) & (g.deg > 8)
+    sel = torch.from_numpy(np.array([-1, 0x5555AAAA] * w, np.int64)[:w]
+                           .astype(np.int32)).to(cuda_device)
+    for form in [(need, None, found, residue.to(torch.int32), 8),
+                 (~vis[:g.n], sel, None, None, 0)]:
+        call = (g.row_ptr, g.col_idx, fro) + form
+        assert torch.equal(segment_or_rows_cuda(*call),
+                           segment_or_rows_ref(*call))
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["msbfs_probe"] == before["msbfs_probe"] + 1
+    assert common.LAUNCHES["segment_or"] == before["segment_or"] + 2
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "topdown", "bottomup"])
+def test_msbfs_pipelined_on_gpu_matches_cpu(cuda_device, mode):
+    """The multi-source slice on the card, with lane refills: every
+    MSBFSResult field equals the CPU run's."""
+    g_cpu = rmat_graph(11, 16, seed=9, device="cpu")
+    g_gpu = rmat_graph(11, 16, seed=9, device=cuda_device)
+    roots = sample_roots(g_cpu, 80, seed=10)
+    common.reset_launches()
+    want = msbfs_pipelined(g_cpu, roots, mode, lanes=64)
+    got = msbfs_pipelined(g_gpu, roots, mode, lanes=64)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a.cpu(), b), name
+    assert common.LAUNCHES["segment_or"] > 0
+    if mode != "topdown":
+        assert common.LAUNCHES["msbfs_probe"] > 0
