@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-  python3 chip_smoke.py [--scale 20] [--roots 64] [--reps 20]
+  python3 chip_smoke.py [--scale 20] [--roots 64] [--sources 32]
+                        [--reps 20] [--out DIR]
 
 Run from the repository root. The graph is Graph500 R-MAT at edgefactor 16
-from seed 0; --scale, --roots and --reps cut a quick check short. Each phase
-prints one JSON line:
+from seed 0, with uniform (0, 1) edge weights; its unweighted view is the
+BFS phases' graph. --scale, --roots, --sources and --reps cut a quick check
+short; --out DIR also writes the per-step rows of sssp_layers there. Each
+phase prints one JSON line:
   device   the card, as torch and nvidia-smi name it, with its power limit;
   build    the CUDA kernels compiled from src/repro_torch/csrc/*.cu (sm_90a);
-  graph    the Graph500 R-MAT graph built on the card;
+  graph    the weighted Graph500 R-MAT graph built on the card;
   kernel   each kernel against its plain PyTorch version on the card, on a
            seeded random visited/frontier split and on every layer state of
            one hybrid BFS: outputs must be bit-equal; times from CUDA events;
@@ -26,6 +29,18 @@ prints one JSON line:
            lanes) with the launch counts of that run alone, then every
            lane against the serial bfs, traces, validator and oracle, and
            a run with 4x the roots through the same 64 lanes (refills);
+  sssp_kernel     the relax kernels (semiring_relax, relax_fallback)
+           against their plain versions on seeded random lane values (L =
+           1, 3 and 32, a quarter of the sources active) under the light
+           and heavy weight masks of default_delta, and on the phase inputs
+           of the first steps (and every 20th) of one sweep;
+  sssp_layers     where that sweep (32 sources in 32 lanes) spends its
+           time, step by step, with the host syncs of a step;
+  sssp     the delta-stepping engine through sssp_pipelined (32 sources in
+           32 lanes), with the launch counts of that run alone, then twice
+           the sources through the same lanes (refills) against it, 4 lanes
+           against scipy's Dijkstra, the unit-weight anchor against
+           msbfs_pipelined, and the sssp_teps points;
   kernels  one entry per ported kernel (counts, errors, times, bounds).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
@@ -48,6 +63,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.benchmarks.sssp_teps import (bench_points,  # noqa: E402
+                                              unit_weight_graph)
 from repro_torch.core import bitmap  # noqa: E402
 from repro_torch.core.bottomup import _fallback_scan, bottomup_simd_step  # noqa: E402
 from repro_torch.core.csr import to_numpy_adj  # noqa: E402
@@ -61,7 +78,8 @@ from repro_torch.core.packed import (lane_counters, pack_lanes_np,  # noqa: E402
                                      unpack_lanes)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
-from repro_torch.graph.generator import rmat_graph, sample_roots  # noqa: E402
+from repro_torch.graph.generator import (rmat_weighted_graph,  # noqa: E402
+                                         sample_roots)
 from repro_torch.graph.graph500 import run_graph500  # noqa: E402
 from repro_torch.graph.validate import validate_bfs_tree  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -72,11 +90,23 @@ from repro_torch.kernels.bottom_up_probe.ref import (  # noqa: E402
 from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda  # noqa: E402
 from repro_torch.kernels.msbfs_probe.ref import (  # noqa: E402
     msbfs_probe_ref, probe_rounds as lane_probe_rounds)
+from repro_torch.kernels.relax_fallback.kernel import (  # noqa: E402
+    relax_fallback_cuda)
+from repro_torch.kernels.relax_fallback.ref import relax_fallback_ref  # noqa: E402
 from repro_torch.kernels.segment_or.kernel import (  # noqa: E402
     segment_or_rows_cuda)
 from repro_torch.kernels.segment_or.ref import segment_or_rows_ref  # noqa: E402
+from repro_torch.kernels.semiring_relax.kernel import (  # noqa: E402
+    semiring_relax_cuda)
+from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
+from repro_torch.traversal.ref import to_numpy_weighted  # noqa: E402
+from repro_torch.traversal.sssp import (default_delta, phase_inputs,  # noqa: E402
+                                        plan_step, prepare_step,
+                                        sssp_engine_enqueue, sssp_engine_idle,
+                                        sssp_engine_init, sssp_engine_step,
+                                        sssp_pipelined)
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W): HBM3 bytes/s, and
 # the 32-bit rate outside the tensor cores, used for the integer operations
@@ -101,10 +131,21 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/segment_or.cu",
         replaces="src/repro/core/packed.py:113 (segment_or, an XLA "
                  "associative_scan; no Pallas kernel)"),
+    "semiring_relax": dict(
+        route="cuda", source="src/repro_torch/csrc/semiring_relax.cu",
+        replaces="src/repro/kernels/semiring_relax/kernel.py:58"),
+    "relax_fallback": dict(
+        route="cuda", source="src/repro_torch/csrc/relax_fallback.cu",
+        replaces="src/repro/traversal/semiring.py:120 (_relax_fallback + "
+                 "tropical segment_reduce, an XLA associative_scan; no "
+                 "Pallas kernel)"),
 }
 SERIAL_KERNELS = ("bottom_up_probe", "topdown_scan")
 BATCHED_KERNELS = ("msbfs_probe", "segment_or")
+SSSP_KERNELS = ("semiring_relax", "relax_fallback")
 LANES = 64
+SSSP_LANES = 32
+INF = float("inf")
 
 
 class SmokeFailure(RuntimeError):
@@ -628,13 +669,290 @@ def run_batched_path(g, args, serial_res):
     return launches
 
 
+def relax_cost(n, lanes, slots, finite, rows):
+    # reads: starts + deg, one weight per live slot, the neighbour id of
+    # each of the ``finite`` live slots with a finite weight, and each
+    # distinct lane row those gather, once; writes: acc
+    nbytes = 8 * n + 4 * (slots + finite) + 4 * lanes * rows + 4 * n * lanes
+    return bound_ms(nbytes, 2 * finite * lanes)
+
+
+def fallback_cost(n, lanes, slots, finite, rows, residue_rows):
+    # reads: row_ptr, one weight per residue slot, the neighbour id of each
+    # of the ``finite`` ones with a finite weight, each distinct lane row
+    # those gather, once, and the base of the residue rows; writes: those
+    # rows (rows without a residue are not touched)
+    nbytes = (4 * (n + 1) + 4 * (slots + finite) + 4 * lanes * rows
+              + 8 * residue_rows * lanes)
+    return bound_ms(nbytes, 2 * finite * lanes)
+
+
+class RelaxKernelCheck:
+    """semiring_relax and relax_fallback against their plain versions;
+    keeps the cases, the largest difference, and the timed input's
+    record. Outputs must be bit-equal (compared as int32 bit patterns)."""
+
+    def __init__(self, wg):
+        self.wg = wg
+        self.rec = {name: dict(cases=0, max_abs_err=0.0)
+                    for name in SSSP_KERNELS}
+        pos = (torch.arange(wg.m, dtype=torch.int32, device=wg.device)
+               - wg.row_ptr[wg.src_idx.long()])
+        self.probe_slots = pos < MAX_POS
+        self.residue_slots = ~self.probe_slots
+
+    def _agree(self, name, label, k, r):
+        check(torch.equal(k.view(torch.int32), r.view(torch.int32)),
+              f"{name} differs from its plain version on {label}")
+        fin = torch.isfinite(r)
+        err = float((k[fin] - r[fin]).abs().max()) if bool(fin.any()) else 0.0
+        self.rec[name]["cases"] += 1
+        self.rec[name]["max_abs_err"] = max(self.rec[name]["max_abs_err"],
+                                            err)
+
+    def args(self, w, vals, acc=None):
+        """(semiring_relax args, relax_fallback args on base ``acc``, which
+        the fold updates in place)."""
+        wg = self.wg
+        return ((wg.row_ptr[:-1], wg.deg, wg.col_idx, w, vals, MAX_POS),
+                (wg.row_ptr, wg.src_idx, wg.col_idx, w, vals, acc, MAX_POS))
+
+    def relax(self, label, w, vals):
+        ra, _ = self.args(w, vals)
+        acc = semiring_relax_cuda(*ra)
+        self._agree("semiring_relax", label, acc, semiring_relax_ref(*ra))
+        _, fa = self.args(w, vals, acc)
+        plain = relax_fallback_ref(*fa[:5], acc.clone(), MAX_POS)
+        self._agree("relax_fallback", label, relax_fallback_cuda(*fa), plain)
+        return ra, fa
+
+    def gathered_rows(self, slots):
+        return int(torch.unique(self.wg.col_idx[slots]).numel())
+
+
+def phase_masks(wg, delta):
+    """The light and heavy edge weights of bucket width ``delta``."""
+    d32 = float(np.float32(delta))
+    w = wg.weights
+    return {"light": torch.where(w <= d32, w, INF),
+            "heavy": torch.where(w > d32, w, INF)}
+
+
+def relax_kernel_random(chk, dev, reps, flush, delta):
+    """Both relax kernels on seeded random lane values (a quarter of the
+    sources active) at L = 1, 3 and 32 under both weight masks; the L = 32
+    heavy pass is timed, with the library yardstick for the fold."""
+    wg = chk.wg
+    n = wg.n
+    for lanes in (1, 3, SSSP_LANES):
+        rng = np.random.default_rng(SEED + lanes)
+        vals = rng.uniform(0, 3, (n, lanes)).astype(np.float32)
+        vals[rng.random((n, lanes)) >= 0.25] = np.inf
+        vals = torch.from_numpy(vals).to(dev)
+        for phase, w in phase_masks(wg, delta).items():
+            ra, fa = chk.relax(f"random L={lanes} {phase}", w, vals)
+        torch.cuda.synchronize()
+        if lanes != SSSP_LANES:
+            continue
+        probe = int(chk.probe_slots.sum())
+        residue = wg.m - probe
+        residue_rows = int((wg.deg > MAX_POS).sum())
+        probe_fin = chk.probe_slots & torch.isfinite(ra[3])
+        residue_fin = chk.residue_slots & torch.isfinite(ra[3])
+        cost = relax_cost(n, lanes, probe, int(probe_fin.sum()),
+                          chk.gathered_rows(probe_fin))
+        chk.rec["semiring_relax"].update(
+            ms=time_ms(lambda: semiring_relax_cuda(*ra), reps, flush),
+            plain_ms=time_ms(lambda: semiring_relax_ref(*ra), reps, flush),
+            bound_ms=cost[0], bound_by=cost[1], library_ms=None,
+            timed_input=dict(case=f"random L={lanes} heavy", vertices=n,
+                             probe_slots=probe,
+                             finite_probe_slots=int(probe_fin.sum())))
+        # fa's base is the fold's result by now: a second fold finds
+        # nothing lower, so every timed run does the same work; the library
+        # yardstick (one scatter_reduce(amin) over the residue slots'
+        # candidates, built outside the timing) starts from the probe's
+        acc = semiring_relax_cuda(*ra)
+        slots = torch.nonzero(chk.residue_slots).squeeze(1)
+        rows = wg.src_idx[slots].long()
+        cand = vals[wg.col_idx[slots].long()] + fa[3][slots][:, None]
+        index = rows[:, None].expand(-1, lanes)
+
+        def library():
+            return torch.scatter_reduce(acc, 0, index, cand, "amin")
+
+        check(torch.equal(library(), fa[5]),
+              "the library yardstick computes another function")
+        cost = fallback_cost(n, lanes, residue, int(residue_fin.sum()),
+                             chk.gathered_rows(residue_fin), residue_rows)
+        chk.rec["relax_fallback"].update(
+            ms=time_ms(lambda: relax_fallback_cuda(*fa), reps, flush),
+            plain_ms=time_ms(lambda: relax_fallback_ref(*fa), reps, flush),
+            library_ms=time_ms(library, reps, flush),
+            bound_ms=cost[0], bound_by=cost[1],
+            timed_input=dict(case=f"random L={lanes} heavy", vertices=n,
+                             residue_slots=residue,
+                             finite_residue_slots=int(residue_fin.sum()),
+                             residue_rows=residue_rows))
+        del cand, index, slots, rows
+
+
+def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
+    """One sweep of the delta-stepping engine, one lane per source, step by
+    step: the lanes in each phase, the host syncs of a step and its wall
+    time, and each relax kernel's time on the step's own inputs (which go
+    through both kernels against their plain versions on the first four
+    steps and every 20th)."""
+    s = sssp_engine_enqueue(sssp_engine_init(wg, len(roots), SSSP_LANES),
+                            roots)
+    rows = []
+    while not sssp_engine_idle(s):
+        s = prepare_step(wg, s, delta)
+        p = plan_step(wg, s, delta)
+        step = s.sweep_steps
+        row = dict(step=step, active=int(p.active.sum()),
+                   light_lanes=int(p.iterating.sum()),
+                   settling_lanes=int(p.settling.sum()))
+        row["syncs"] = syncs_of(lambda: sssp_engine_step(wg, s, delta))
+        row["step_ms"] = wall_ms(lambda: sssp_engine_step(wg, s, delta), reps)
+        relax_ms = 0.0
+        for phase, w, vals in phase_inputs(wg, s, delta, p):
+            if step < 4 or step % 20 == 0:
+                chk.relax(f"sweep step {step} {phase}", w, vals)
+            ra, _ = chk.args(w, vals)
+            _, fa = chk.args(w, vals, semiring_relax_cuda(*ra))
+            row[f"{phase}_sources"] = int(torch.isfinite(vals).sum())
+            row[f"{phase}_probe_ms"] = time_ms(
+                lambda: semiring_relax_cuda(*ra), reps, flush)
+            row[f"{phase}_fold_ms"] = time_ms(
+                lambda: relax_fallback_cuda(*fa), reps, flush)
+            relax_ms += row[f"{phase}_probe_ms"] + row[f"{phase}_fold_ms"]
+        row["relax_ms"] = relax_ms
+        row["outside_relax_ms"] = row["step_ms"] - relax_ms
+        rows.append(row)
+        s = sssp_engine_step(wg, s, delta)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "sssp_layers.json"), "w") as f:
+            json.dump(rows, f)
+    relaxes = sum(("light_probe_ms" in r) + ("heavy_probe_ms" in r)
+                  for r in rows)
+    emit("sssp_layers", sources=len(roots), lanes=SSSP_LANES, delta=delta,
+         steps=len(rows), relaxes=relaxes,
+         light_steps=sum("light_probe_ms" in r for r in rows),
+         heavy_steps=sum("heavy_probe_ms" in r for r in rows),
+         step_ms_total=sum(r["step_ms"] for r in rows),
+         relax_ms_total=sum(r["relax_ms"] for r in rows),
+         probe_ms_total=sum(r.get("light_probe_ms", 0) + r.get(
+             "heavy_probe_ms", 0) for r in rows),
+         fold_ms_total=sum(r.get("light_fold_ms", 0) + r.get(
+             "heavy_fold_ms", 0) for r in rows),
+         outside_relax_ms_total=sum(r["outside_relax_ms"] for r in rows),
+         syncs_per_step=sorted(set(r["syncs"] for r in rows)),
+         rows_every_10th=rows[::10])
+
+
+def dijkstra_check(wg, roots, dist, lanes: int = 4) -> float:
+    """The first ``lanes`` lanes against scipy's Dijkstra in float64, on a
+    copy that keeps one edge per (u, v): the CSR keeps parallel edges, each
+    row sorted by (neighbour, weight), so the first of a run is the
+    lightest. Returns the largest difference; raises past 1e-4."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    rp, ci, w = to_numpy_weighted(wg)
+    src = np.repeat(np.arange(wg.n), np.diff(rp))
+    keep = np.ones(wg.m, bool)
+    keep[1:] = (src[1:] != src[:-1]) | (ci[1:] != ci[:-1])
+    a = sp.csr_matrix((w[keep].astype(np.float64), (src[keep], ci[keep])),
+                      shape=(wg.n, wg.n))
+    want = dijkstra(a, indices=[int(r) for r in roots[:lanes]])
+    got = dist[:, :lanes].cpu().numpy().T.astype(np.float64)
+    check(np.array_equal(np.isfinite(got), np.isfinite(want)),
+          "SSSP reached sets differ from Dijkstra")
+    fin = np.isfinite(want)
+    err = float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+    check(err <= 1e-4, f"SSSP distances differ from Dijkstra by {err}")
+    return err
+
+
+def run_sssp_path(wg, args):
+    """The delta-stepping engine through its entry point, then its checks.
+    Returns (launches of the 32-source run, its engine steps)."""
+    many = sample_roots(wg, 2 * args.sources, seed=SEED + 1)
+    roots = many[:args.sources]
+    delta = default_delta(wg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    res = sssp_pipelined(wg, roots, lanes=SSSP_LANES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in SSSP_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the SSSP path")
+    check(not bool(res.truncated.any()), "an SSSP lane was truncated")
+    check(res.dist.shape == (wg.n, len(roots)), "SSSP dist has another shape")
+    steps = res.steps.tolist()
+    sweep_steps = max(steps)     # sources <= lanes: all start on step one
+
+    # twice the sources through the same lanes: the first ones' answers are
+    # the same bits, whatever lane served them and whenever
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res2 = sssp_pipelined(wg, many, lanes=SSSP_LANES)
+    torch.cuda.synchronize()
+    seconds2 = time.perf_counter() - t0
+    peak2 = torch.cuda.max_memory_allocated()
+    k = len(roots)
+    check(not bool(res2.truncated.any()), "a refill-run lane was truncated")
+    for name, a, b in zip(res._fields, res2, res):
+        a = a[:, :k] if a.dim() == 2 else a[:k]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b),
+              f"refill run: {name} differs from the {k}-source run")
+    err = dijkstra_check(wg, roots, res.dist)
+
+    # the unit-weight anchor: delta = 1 walks BFS layers
+    unit = unit_weight_graph(wg)
+    depth = sssp_pipelined(unit, roots, delta=1.0,
+                           lanes=SSSP_LANES).as_depth()
+    want = msbfs_pipelined(unit.csr, roots, "hybrid", lanes=SSSP_LANES,
+                           derive_parents=False).depth
+    check(torch.equal(depth, want),
+          "unit-weight SSSP depths differ from msbfs_pipelined")
+    points = bench_points(args.scale, EDGEFACTOR, SEED, args.sources,
+                          SSSP_LANES, graph=wg, unit=unit)
+    finite = res.dist[torch.isfinite(res.dist)]
+    emit("sssp", entry="repro_torch.traversal.sssp.sssp_pipelined",
+         sources=k, lanes=SSSP_LANES, delta=delta, seconds=seconds,
+         launches=launches, sweep_steps=sweep_steps,
+         steps_min=min(steps), steps_median=float(np.median(steps)),
+         steps_max=max(steps), peak_mem_bytes=peak,
+         max_dist=float(finite.max()),
+         reached_per_lane_median=float(torch.isfinite(res.dist).sum(
+             dim=0).float().median()),
+         refill=dict(sources=len(many), lanes=SSSP_LANES, seconds=seconds2,
+                     peak_mem_bytes=peak2, checked_sources=k,
+                     steps_max=int(res2.steps.max())),
+         dijkstra_lanes=4, dijkstra_max_abs_err=err,
+         unit_weight_anchor_lanes=k, teps=points)
+    return launches, sweep_steps
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--roots", type=int, default=64)
+    ap.add_argument("--sources", type=int, default=32)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=None,
+                    help="also write sssp_layers' per-step rows here")
     args = ap.parse_args(argv)
+    if not 1 <= args.sources <= SSSP_LANES:
+        ap.error(f"--sources must be in [1, {SSSP_LANES}]")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -655,11 +973,13 @@ def main(argv=None) -> int:
          nvcc_flags=list(common.NVCC_FLAGS), **common.build_info)
 
     t0 = time.perf_counter()
-    g = rmat_graph(args.scale, EDGEFACTOR, seed=SEED)
+    wg = rmat_weighted_graph(args.scale, EDGEFACTOR, seed=SEED)
+    g = wg.csr  # equals rmat_graph(scale, EDGEFACTOR, SEED)
     torch.cuda.synchronize()
     csr_bytes = sum(t.numel() * t.element_size() for t in g)
     emit("graph", scale=args.scale, edgefactor=EDGEFACTOR, n=g.n, m=g.m,
          device=str(g.device), csr_bytes=csr_bytes,
+         weight_bytes=wg.weights.numel() * wg.weights.element_size(),
          seconds=time.perf_counter() - t0)
     check(g.device.type == "cuda", "graph is not on the GPU")
 
@@ -679,18 +999,32 @@ def main(argv=None) -> int:
                             flush)
     for name, r in chk.rec.items():
         emit("msbfs_kernel", name=name, bit_equal=True, **r)
+
+    delta = default_delta(wg)
+    rchk = RelaxKernelCheck(wg)
+    relax_kernel_random(rchk, dev, args.reps, flush, delta)
+    sssp_layers(wg, sample_roots(wg, args.sources, seed=SEED + 1), rchk,
+                max(args.reps // 4, 3), flush, delta, args.out)
+    for name, r in rchk.rec.items():
+        emit("sssp_kernel", name=name, bit_equal=True, **r)
     del flush
     batched_launches = run_batched_path(g, args, res)
+    sssp_launches, sssp_steps = run_sssp_path(wg, args)
 
     kernels = []
     for name in KERNELS:
         serial = name in SERIAL_KERNELS
-        r = rec[name] if serial else chk.rec[name]
-        count = launches[name] if serial else batched_launches[name]
-        # the serial harness runs one BFS per root plus a warm-up root; the
-        # batched one runs the sweep twice (warm-up and timed)
-        per = (dict(launches_per_bfs=count / (len(res.roots) + 1)) if serial
-               else dict(launches_per_sweep_layer=count / (2 * layers)))
+        if name in SSSP_KERNELS:
+            r, count = rchk.rec[name], sssp_launches[name]
+            per = dict(launches_per_step=count / sssp_steps)
+        elif serial:
+            # the serial harness runs one BFS per root plus a warm-up root
+            r, count = rec[name], launches[name]
+            per = dict(launches_per_bfs=count / (len(res.roots) + 1))
+        else:
+            # the batched harness runs the sweep twice (warm-up and timed)
+            r, count = chk.rec[name], batched_launches[name]
+            per = dict(launches_per_sweep_layer=count / (2 * layers))
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

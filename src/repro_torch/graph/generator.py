@@ -7,16 +7,22 @@ edge-order shuffle.
 
 The sampling is numpy ``default_rng`` code copied from
 ``repro.graph.generator``, so a seed gives the same edges, bit for bit, in
-both packages. Edges are drawn on the host; the CSR goes to the device once.
+both packages; so are the weighted graphs' uniform (0, 1) edge weights,
+drawn from their own seed stream. Edges are drawn on the host; the CSR goes
+to the device once.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.csr import CSRGraph, from_edges
+from repro_torch.core.csr import (CSRGraph, WeightedCSRGraph, from_edges,
+                                  from_weighted_edges)
 from repro_torch.device import resolve_device
 
 GRAPH500_ABCD = (0.57, 0.19, 0.19, 0.05)
+
+# Graph500 SSSP-kernel convention: uniform edge weights in (0, 1]
+WEIGHT_RANGE = (0.0, 1.0)
 
 
 def rmat_edges(scale: int, edgefactor: int, seed: int = 0,
@@ -53,6 +59,48 @@ def rmat_graph(scale: int, edgefactor: int, seed: int = 0,
     src, dst, n = rmat_edges(scale, edgefactor, seed, abcd)
     return from_edges(src, dst, n, symmetrize=True, drop_self_loops=True,
                       device=device)
+
+
+def edge_weights(m: int, seed: int = 0,
+                 weight_range: tuple[float, float] = WEIGHT_RANGE,
+                 ) -> np.ndarray:
+    """One uniform weight per directed input edge, float64[m], from a seed
+    stream independent of the edge sampler's, so (scale, seed) still pins
+    the unweighted topology."""
+    lo, hi = weight_range
+    if not 0 <= lo <= hi:
+        raise ValueError(f"need 0 <= lo <= hi, got weight_range "
+                         f"({lo}, {hi})")
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x5557]))
+    return rng.uniform(lo, hi, size=m)
+
+
+def rmat_weighted_graph(scale: int, edgefactor: int, seed: int = 0,
+                        abcd: tuple[float, float, float, float]
+                        = GRAPH500_ABCD,
+                        weight_range: tuple[float, float] = WEIGHT_RANGE,
+                        device=None) -> WeightedCSRGraph:
+    """``rmat_graph`` with one uniform weight per undirected edge, the same
+    both ways; its ``.csr`` equals ``rmat_graph(scale, edgefactor, seed)``."""
+    device = resolve_device(device)
+    src, dst, n = rmat_edges(scale, edgefactor, seed, abcd)
+    w = edge_weights(len(src), seed, weight_range)
+    return from_weighted_edges(src, dst, w, n, symmetrize=True,
+                               drop_self_loops=True, device=device)
+
+
+def uniform_random_weighted_graph(n: int, m: int, seed: int = 0,
+                                  weight_range: tuple[float, float]
+                                  = WEIGHT_RANGE,
+                                  device=None) -> WeightedCSRGraph:
+    """Weighted G(n, m) graph, used by the SSSP tests."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, size=m)
+    dst = rng.integers(0, n, size=m)
+    w = edge_weights(m, seed, weight_range)
+    return from_weighted_edges(src, dst, w, n, symmetrize=True,
+                               drop_self_loops=True, device=device)
 
 
 def uniform_random_graph(n: int, m: int, seed: int = 0,

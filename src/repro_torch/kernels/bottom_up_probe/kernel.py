@@ -39,9 +39,9 @@ def bottom_up_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
     dev = starts.device
     for name, t in (("starts", starts), ("deg", deg), ("unvisited", unvisited),
                     ("parent", parent)):
-        common.check_int32_cuda(name, t, n, dev)
-    common.check_int32_cuda("col_idx", col_idx, device=dev)
-    common.check_int32_cuda("frontier_words", frontier_words, device=dev)
+        common.check_cuda_tensor(name, t, n, dev)
+    common.check_cuda_tensor("col_idx", col_idx, device=dev)
+    common.check_cuda_tensor("frontier_words", frontier_words, device=dev)
     found = torch.empty_like(parent)
     parent_out = torch.empty_like(parent)
     if n == 0:

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launch count of each kernel wrapper: one per kernel launch, nowhere else.
 LAUNCHES: dict[str, int] = {"bottom_up_probe": 0, "topdown_scan": 0,
-                            "msbfs_probe": 0, "segment_or": 0}
+                            "msbfs_probe": 0, "segment_or": 0,
+                            "semiring_relax": 0, "relax_fallback": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -107,18 +108,18 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_int32_cuda(name: str, t: torch.Tensor, numel: int | None = None,
-                     device: torch.device | None = None,
-                     width: int | None = None):
-    """Raise unless ``t`` is a contiguous int32 CUDA tensor: 1-D, or 2-D
-    with ``width`` columns when ``width`` is given (of ``numel`` elements,
-    and on ``device``, when given)."""
+def check_cuda_tensor(name: str, t: torch.Tensor, numel: int | None = None,
+                      device: torch.device | None = None,
+                      width: int | None = None, dtype=torch.int32):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (int32
+    unless given): 1-D, or 2-D with ``width`` columns when ``width`` is
+    given (of ``numel`` elements, and on ``device``, when given)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if width is None and (t.dim() != 1 or not t.is_contiguous()):
         raise ValueError(f"{name} must be 1-D and contiguous")
     if width is not None and (t.dim() != 2 or t.shape[1] != width

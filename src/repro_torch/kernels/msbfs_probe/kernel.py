@@ -41,12 +41,12 @@ def msbfs_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
         raise ValueError("need_words must be 2-D [n, W]")
     n, w = need_words.shape
     dev = starts.device
-    common.check_int32_cuda("starts", starts, n, dev)
-    common.check_int32_cuda("deg", deg, n, dev)
-    common.check_int32_cuda("need_words", need_words, n * w, dev, width=w)
-    common.check_int32_cuda("col_idx", col_idx, device=dev)
-    common.check_int32_cuda("frontier_words", frontier_words, device=dev,
-                            width=w)
+    common.check_cuda_tensor("starts", starts, n, dev)
+    common.check_cuda_tensor("deg", deg, n, dev)
+    common.check_cuda_tensor("need_words", need_words, n * w, dev, width=w)
+    common.check_cuda_tensor("col_idx", col_idx, device=dev)
+    common.check_cuda_tensor("frontier_words", frontier_words, device=dev,
+                             width=w)
     nf = frontier_words.shape[0]
     if nf < n:
         raise ValueError(f"frontier_words has {nf} rows, fewer than n={n}")

@@ -42,16 +42,16 @@ def segment_or_rows_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
         raise ValueError("mask must be 2-D [n, W]")
     n, w = mask.shape
     dev = mask.device
-    common.check_int32_cuda("row_ptr", row_ptr, n + 1, dev)
-    common.check_int32_cuda("col_idx", col_idx, device=dev)
-    common.check_int32_cuda("frontier", frontier, device=dev, width=w)
-    common.check_int32_cuda("mask", mask, n * w, dev, width=w)
+    common.check_cuda_tensor("row_ptr", row_ptr, n + 1, dev)
+    common.check_cuda_tensor("col_idx", col_idx, device=dev)
+    common.check_cuda_tensor("frontier", frontier, device=dev, width=w)
+    common.check_cuda_tensor("mask", mask, n * w, dev, width=w)
     if sel is not None:
-        common.check_int32_cuda("sel", sel, w, dev)
+        common.check_cuda_tensor("sel", sel, w, dev)
     if base is not None:
-        common.check_int32_cuda("base", base, n * w, dev, width=w)
+        common.check_cuda_tensor("base", base, n * w, dev, width=w)
     if row_active is not None:
-        common.check_int32_cuda("row_active", row_active, n, dev)
+        common.check_cuda_tensor("row_active", row_active, n, dev)
     nf = frontier.shape[0]
     if nf < 1 and col_idx.numel():
         raise ValueError("frontier has no rows")

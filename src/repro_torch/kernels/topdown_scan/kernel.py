@@ -38,10 +38,10 @@ def topdown_scan_cuda(src_idx: torch.Tensor, col_idx: torch.Tensor,
     all on one device. Raises on anything else."""
     m = src_idx.numel()
     dev = src_idx.device
-    common.check_int32_cuda("src_idx", src_idx)
-    common.check_int32_cuda("col_idx", col_idx, m, dev)
-    common.check_int32_cuda("frontier_words", frontier_words, device=dev)
-    common.check_int32_cuda("visited_words", visited_words, device=dev)
+    common.check_cuda_tensor("src_idx", src_idx)
+    common.check_cuda_tensor("col_idx", col_idx, m, dev)
+    common.check_cuda_tensor("frontier_words", frontier_words, device=dev)
+    common.check_cuda_tensor("visited_words", visited_words, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     best.fill_(n)
     if m == 0 or n == 0:

@@ -12,9 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.csr import from_edges, from_numpy_graph
-from repro_torch.graph.generator import rmat_graph, uniform_random_graph
+from repro_torch.core.csr import (from_edges, from_numpy_graph,
+                                  from_numpy_weighted_graph,
+                                  from_weighted_edges)
+from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
+                                         uniform_random_graph,
+                                         uniform_random_weighted_graph)
 from repro_torch.graph.graph500 import run_graph500
+from repro_torch.benchmarks import sssp_teps
 from repro_torch.launch import bfs as launch_bfs
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,7 +45,13 @@ def test_port_files_are_found():
             "kernels/common.py", "kernels/bottom_up_probe/kernel.py",
             "kernels/topdown_scan/kernel.py", "kernels/msbfs_probe/kernel.py",
             "kernels/segment_or/kernel.py", "graph/graph500.py",
-            "launch/bfs.py", "benchmarks/msbfs_teps.py"} <= names
+            "launch/bfs.py", "benchmarks/msbfs_teps.py",
+            "kernels/semiring_relax/kernel.py",
+            "kernels/semiring_relax/ref.py", "kernels/semiring_relax/ops.py",
+            "kernels/relax_fallback/kernel.py",
+            "kernels/relax_fallback/ref.py", "kernels/relax_fallback/ops.py",
+            "traversal/semiring.py", "traversal/sssp.py", "traversal/ref.py",
+            "benchmarks/sssp_teps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -90,6 +101,18 @@ def test_entry_points_raise_without_gpu(no_gpu):
         from_edges(np.array([0, 1]), np.array([1, 2]), 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_numpy_graph(np.array([0, 1]), np.array([0]), np.array([0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rmat_weighted_graph(6, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uniform_random_weighted_graph(10, 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_weighted_edges(np.array([0, 1]), np.array([1, 2]),
+                            np.array([0.5, 1.0]), 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_numpy_weighted_graph(np.array([0, 1]), np.array([0]),
+                                  np.array([0]), np.array([1.0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sssp_teps.main(["--scale", "6", "--sources", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_graph500(6, 4, num_roots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):

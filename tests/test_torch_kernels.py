@@ -2,7 +2,8 @@
 
 On the CPU the port's wrappers take the kernels' plain PyTorch versions;
 the Pallas kernels run in interpret mode, as the JAX package's own tests run
-them. Outputs are integer arrays, so the tolerance is exact equality. The
+them. Outputs are integer arrays, or float32 minima of the same sums, so
+the tolerance is exact equality. The
 tests that launch the CUDA kernels need a GPU and skip without one; they
 use neither JAX nor the JAX package, so they also run on a machine that has
 a GPU and no JAX:
@@ -17,11 +18,12 @@ import pytest
 import torch
 
 from repro_torch.core import bitmap
-from repro_torch.core.csr import from_numpy_graph
+from repro_torch.core.csr import from_numpy_graph, from_weighted_edges
 from repro_torch.core.hybrid import bfs
 from repro_torch.core.msbfs import msbfs_pipelined
 from repro_torch.core.topdown import topdown_step
-from repro_torch.graph.generator import rmat_graph, sample_roots
+from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
+                                         sample_roots)
 from repro_torch.kernels import common
 from repro_torch.kernels.bottom_up_probe.kernel import bottom_up_probe_cuda
 from repro_torch.kernels.bottom_up_probe.ops import bottom_up_probe
@@ -29,13 +31,20 @@ from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
 from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda
 from repro_torch.kernels.msbfs_probe.ops import msbfs_probe
 from repro_torch.kernels.msbfs_probe.ref import msbfs_probe_ref
+from repro_torch.kernels.relax_fallback.kernel import relax_fallback_cuda
+from repro_torch.kernels.relax_fallback.ops import relax_fallback
+from repro_torch.kernels.relax_fallback.ref import relax_fallback_ref
 from repro_torch.kernels.segment_or.kernel import segment_or_rows_cuda
 from repro_torch.kernels.segment_or.ops import segment_or_rows
 from repro_torch.kernels.segment_or.ref import segment_or_rows_ref
+from repro_torch.kernels.semiring_relax.kernel import semiring_relax_cuda
+from repro_torch.kernels.semiring_relax.ops import semiring_relax
+from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
 from repro_torch.kernels.topdown_scan.ops import topdown_scan
 from repro_torch.kernels.topdown_scan.ref import (topdown_best_ref,
                                                   topdown_scan_ref)
+from repro_torch.traversal.sssp import sssp_pipelined
 
 
 @pytest.fixture(scope="module")
@@ -169,6 +178,10 @@ def test_cpu_path_launches_no_kernel():
     fro_w, vis_w = lane_split(g.n, 2, 5)
     msbfs_probe(g.row_ptr, g.col_idx, fro_w, ~vis_w, 8)
     segment_or_rows(g.row_ptr, g.col_idx, fro_w, ~vis_w)
+    w = torch.ones(g.m)
+    vals = torch.zeros((g.n, 3))
+    acc = semiring_relax(g.row_ptr, g.col_idx, w, vals, 8)
+    relax_fallback(g.row_ptr, g.src_idx, g.col_idx, w, vals, acc, 8)
     assert common.LAUNCHES == before
 
 
@@ -186,6 +199,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_or_rows_cuda(torch.zeros(5, dtype=torch.int32), x, words,
                              words)
+    w, vals = torch.zeros(4), torch.zeros((4, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        semiring_relax_cuda(x, x, x, w, vals, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        relax_fallback_cuda(torch.zeros(5, dtype=torch.int32), x, x, w, vals,
+                            vals, 8)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -199,8 +218,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     names = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
-    assert names == ["bottom_up_probe.cu", "msbfs_probe.cu", "segment_or.cu",
+    assert names == ["bottom_up_probe.cu", "msbfs_probe.cu",
+                     "relax_fallback.cu", "segment_or.cu", "semiring_relax.cu",
                      "topdown_scan.cu"]
+    assert set(common.LAUNCHES) == {p[:-3] for p in names}
     assert "arch=compute_90a,code=sm_90a" in common.NVCC_FLAGS
     assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
 
@@ -294,3 +315,79 @@ def test_msbfs_pipelined_on_gpu_matches_cpu(cuda_device, mode):
     assert common.LAUNCHES["segment_or"] > 0
     if mode != "topdown":
         assert common.LAUNCHES["msbfs_probe"] > 0
+
+
+def relax_graph(device, max_pos=8, n=3000, seed=0):
+    """A directed weighted CSR with every kind of row the relax kernels
+    meet: row 0 a hub over every vertex (one very long row), row 1 exactly
+    ``max_pos`` neighbours, row 2 empty, the rest 0-40 random neighbours;
+    about a fifth of the weights +inf (excluded edges)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 41, n)
+    deg[:3] = (n, max_pos, 0)
+    src = np.repeat(np.arange(n), deg)
+    dst = np.concatenate([np.arange(n), rng.integers(0, n, deg[1:].sum())])
+    g = from_weighted_edges(src, dst, rng.uniform(0, 1, src.size), n,
+                            symmetrize=False, drop_self_loops=False,
+                            device=device)
+    w = g.weights.clone()
+    w[torch.from_numpy(rng.random(g.m) < 0.2).to(device)] = float("inf")
+    return g, w
+
+
+def relax_values(n_rows, lanes, seed, device):
+    """Seeded lane values, about three quarters +inf (inactive sources)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(0, 4, (n_rows, lanes)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.75] = np.inf
+    return torch.from_numpy(vals).to(device)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8, 32, 33])
+@pytest.mark.parametrize("max_pos", [1, 8])
+def test_relax_kernels_cuda_match_plain(cuda_device, lanes, max_pos):
+    """semiring_relax (a thread per vertex at L <= 8, a warp per vertex
+    above, and the flat form at L = 1) and relax_fallback (in place),
+    bit-equal to their plain versions, with lane values of more rows than
+    the graph."""
+    g, w = relax_graph(cuda_device, max_pos)
+    vals = relax_values(g.n + 37, lanes, lanes + max_pos, cuda_device)
+    starts, deg = g.row_ptr[:-1], g.deg
+    before = dict(common.LAUNCHES)
+    want = semiring_relax_ref(starts, deg, g.col_idx, w, vals, max_pos)
+    got = semiring_relax_cuda(starts, deg, g.col_idx, w, vals, max_pos)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if lanes == 1:
+        flat = semiring_relax_cuda(starts, deg, g.col_idx, w,
+                                   vals[:, 0].contiguous(), max_pos)
+        assert flat.shape == (g.n,) and torch.equal(flat, want[:, 0])
+    args = (g.row_ptr, g.src_idx, g.col_idx, w, vals)
+    folded = relax_fallback_ref(*args, want.clone(), max_pos)
+    base = want.clone()
+    assert relax_fallback_cuda(*args, base, max_pos) is base   # in place
+    assert torch.equal(base.view(torch.int32), folded.view(torch.int32))
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["semiring_relax"] == (
+        before["semiring_relax"] + 1 + (lanes == 1))
+    assert common.LAUNCHES["relax_fallback"] == before["relax_fallback"] + 1
+    # the hub row's residue spans many segments and merges by atomics
+    assert int(g.deg[0]) > 100 * max_pos
+
+
+@pytest.mark.parametrize("delta", [None, "tuple"])
+def test_sssp_pipelined_on_gpu_matches_cpu(cuda_device, delta):
+    """The weighted slice on the card, with lane refills: every SSSPResult
+    field equals the CPU run's, and both relax kernels were launched."""
+    g_cpu = rmat_weighted_graph(11, 16, seed=9, device="cpu")
+    g_gpu = rmat_weighted_graph(11, 16, seed=9, device=cuda_device)
+    roots = sample_roots(g_cpu, 40, seed=10)
+    lanes = 16
+    if delta == "tuple":
+        delta = tuple(0.02 * (1 + i % 3) for i in range(lanes))
+    common.reset_launches()
+    want = sssp_pipelined(g_cpu, roots, delta=delta, lanes=lanes)
+    got = sssp_pipelined(g_gpu, roots, delta=delta, lanes=lanes)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a.cpu(), b), name
+    assert common.LAUNCHES["semiring_relax"] > 0
+    assert common.LAUNCHES["relax_fallback"] > 0
