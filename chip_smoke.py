@@ -41,6 +41,19 @@ phase prints one JSON line:
            the sources through the same lanes (refills) against it, 4 lanes
            against scipy's Dijkstra, the unit-weight anchor against
            msbfs_pipelined, and the sssp_teps points;
+  gnn_kernel      the GCN aggregation kernels (ell_spmm, spmm_residue)
+           against their plain versions taken in float64, within float32's
+           summation bound, on a seeded ogb_products-shaped batch's graph
+           (d = 16, timed, and 47), a row subset of it at d = 100, and the
+           R-MAT graph at d = 16 (hub rows: long residue tails);
+  gcn_layers      where one gcn-cora training step at ogb_products spends
+           its time (data, CSR + ELL build, forward, backward, optimizer),
+           the kernels' launches and ms in a step, its host syncs;
+  gcn_train       the Trainer on gcn-cora at ogb_products (1 warm-up and 5
+           timed steps) with the launch counts of that run alone (4 of each
+           kernel a step), then one step on the kernels against the plain
+           aggregation on the same card, and kill-and-resume at
+           full_graph_sm (exact);
   kernels  one entry per ported kernel (counts, errors, times, bounds).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
@@ -54,6 +67,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -67,7 +81,9 @@ from repro_torch.benchmarks.sssp_teps import (bench_points,  # noqa: E402
                                               unit_weight_graph)
 from repro_torch.core import bitmap  # noqa: E402
 from repro_torch.core.bottomup import _fallback_scan, bottomup_simd_step  # noqa: E402
-from repro_torch.core.csr import to_numpy_adj  # noqa: E402
+from repro_torch.configs.base import (effective_cfg, get_arch,  # noqa: E402
+                                      make_step, param_builders)
+from repro_torch.core.csr import CSRGraph, ell_pad, to_numpy_adj  # noqa: E402
 from repro_torch.core.hybrid import (ALPHA_DEFAULT, BETA_DEFAULT,  # noqa: E402
                                      MAX_TRACE, bfs)
 from repro_torch.core.msbfs import (_derive_parents, _plan, _refill,  # noqa: E402
@@ -78,6 +94,7 @@ from repro_torch.core.packed import (lane_counters, pack_lanes_np,  # noqa: E402
                                      unpack_lanes)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
+from repro_torch.data.pipeline import gnn_batch  # noqa: E402
 from repro_torch.graph.generator import (rmat_weighted_graph,  # noqa: E402
                                          sample_roots)
 from repro_torch.graph.graph500 import run_graph500  # noqa: E402
@@ -87,6 +104,10 @@ from repro_torch.kernels.bottom_up_probe.kernel import (  # noqa: E402
     bottom_up_probe_cuda)
 from repro_torch.kernels.bottom_up_probe.ref import (  # noqa: E402
     bottom_up_probe_ref, probe_rounds)
+from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda  # noqa: E402
+from repro_torch.kernels.ell_spmm.ops import (spmm_aggregate,  # noqa: E402
+                                              spmm_aggregate_ref)
+from repro_torch.kernels.ell_spmm.ref import ell_spmm_ref  # noqa: E402
 from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda  # noqa: E402
 from repro_torch.kernels.msbfs_probe.ref import (  # noqa: E402
     msbfs_probe_ref, probe_rounds as lane_probe_rounds)
@@ -99,8 +120,17 @@ from repro_torch.kernels.segment_or.ref import segment_or_rows_ref  # noqa: E402
 from repro_torch.kernels.semiring_relax.kernel import (  # noqa: E402
     semiring_relax_cuda)
 from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref  # noqa: E402
+from repro_torch.kernels.spmm_residue.kernel import (  # noqa: E402
+    spmm_residue_cuda)
+from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
+from repro_torch.models.gnn.common import (ELL_K_MAX,  # noqa: E402
+                                           build_adjacency)
+from repro_torch.models.gnn.gcn import gcn_loss  # noqa: E402
+from repro_torch.optim.adamw import (adamw_update,  # noqa: E402
+                                     clip_by_global_norm, init_opt_state)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.traversal.ref import to_numpy_weighted  # noqa: E402
 from repro_torch.traversal.sssp import (default_delta, phase_inputs,  # noqa: E402
                                         plan_step, prepare_step,
@@ -139,10 +169,19 @@ KERNELS = {
         replaces="src/repro/traversal/semiring.py:120 (_relax_fallback + "
                  "tropical segment_reduce, an XLA associative_scan; no "
                  "Pallas kernel)"),
+    "ell_spmm": dict(
+        route="cuda", source="src/repro_torch/csrc/ell_spmm.cu",
+        replaces="src/repro/kernels/ell_spmm/kernel.py:42"),
+    "spmm_residue": dict(
+        route="cuda", source="src/repro_torch/csrc/spmm_residue.cu",
+        replaces="src/repro/kernels/ell_spmm/ops.py:28 (the residue's XLA "
+                 "segment_sum; no Pallas kernel)"),
 }
 SERIAL_KERNELS = ("bottom_up_probe", "topdown_scan")
 BATCHED_KERNELS = ("msbfs_probe", "segment_or")
 SSSP_KERNELS = ("semiring_relax", "relax_fallback")
+GNN_KERNELS = ("ell_spmm", "spmm_residue")
+GCN_STEPS = 6  # the Trainer's run: 1 warm-up step and 5 timed
 LANES = 64
 SSSP_LANES = 32
 INF = float("inf")
@@ -942,6 +981,324 @@ def run_sssp_path(wg, args):
     return launches, sweep_steps
 
 
+def f32_bound(abs_sum64, deg):
+    """Float32's summation bound for rows of ``deg`` terms against their
+    float64 sum: 2 * deg * 2**-24 * sum |x_u| + 1e-7."""
+    return 2.0 * deg.double()[:, None] * 2.0 ** -24 * abs_sum64 + 1e-7
+
+
+def slab_cost(n, k_max, slots, n_src, d):
+    # reads: the ids and flags of every slot, each gathered source row once
+    # (at most all of x); writes: y
+    nbytes = 5 * n * k_max + 4 * d * min(slots, n_src) + 4 * n * d
+    return bound_ms(nbytes, slots * d)
+
+
+def residue_cost(n, tail_slots, tail_rows, n_src, d):
+    # reads: row_ptr, each tail slot's id, each gathered source row once,
+    # the residue rows of y; writes: those rows of y
+    nbytes = (4 * (n + 1) + 4 * tail_slots + 4 * d * min(tail_slots, n_src)
+              + 8 * d * tail_rows)
+    return bound_ms(nbytes, tail_slots * d)
+
+
+def library_csrs(g, neigh, valid, k_max, n_src):
+    """The slab and the tail as CSR sparse tensors of ones, for
+    torch.sparse.mm (cuSPARSE): the library yardsticks of the two kernels,
+    built outside the timing and used nowhere in the port."""
+    n, dev = g.n, g.device
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(valid.sum(dim=1), 0, out=crow[1:])
+    cols = neigh[valid].long()
+    slab = torch.sparse_csr_tensor(
+        crow, cols, torch.ones(cols.numel(), device=dev), size=(n, n_src))
+    pos = torch.arange(g.m, device=dev) - g.row_ptr[g.src_idx.long()]
+    tcols = g.col_idx[pos >= k_max].long()
+    tcrow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum((g.deg - k_max).clamp(min=0), 0, out=tcrow[1:])
+    tail = torch.sparse_csr_tensor(
+        tcrow, tcols, torch.ones(tcols.numel(), device=dev), size=(n, n_src))
+    return slab, tail
+
+
+class GnnKernelCheck:
+    """ell_spmm and spmm_residue against their plain versions taken in
+    float64, within float32's summation bound; keeps the cases, the largest
+    error and ratio to the bound, and the times of each timed input."""
+
+    def __init__(self):
+        self.rec = {name: dict(cases=0, max_abs_err=0.0, max_bound_ratio=0.0)
+                    for name in GNN_KERNELS}
+        self.rows = []
+
+    def _agree(self, name, label, got, want, abs_sum, deg):
+        err = (got.double() - want).abs()
+        ratio = float((err / f32_bound(abs_sum, deg)).max()) \
+            if err.numel() else 0.0
+        check(ratio <= 1.0, f"{name} exceeds float32's summation bound on "
+                            f"{label} (ratio {ratio})")
+        r = self.rec[name]
+        r["cases"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               float(err.max()) if err.numel() else 0.0)
+        r["max_bound_ratio"] = max(r["max_bound_ratio"], ratio)
+        return ratio
+
+    def run(self, label, g, neigh, valid, x, k_max, reps, flush,
+            timed=False):
+        """Both kernels on one input; times them when ``reps``."""
+        n, n_src, d = neigh.shape[0], x.shape[0], x.shape[1]
+        deg = g.deg[:n]
+        y = ell_spmm_cuda(neigh, valid, x)
+        check(torch.equal(ell_spmm_cuda(neigh, valid, x), y),
+              f"ell_spmm is not deterministic on {label}")
+        x64 = x.double()
+        slab = ell_spmm_ref(neigh, valid, x64)
+        slab_abs = ell_spmm_ref(neigh, valid, x64.abs())
+        row = dict(case=label, n=n, n_src=n_src, d=d, k_max=k_max)
+        row["ell_spmm_bound_ratio"] = self._agree(
+            "ell_spmm", label, y, slab, slab_abs, deg.clamp(max=k_max))
+        y2 = y.clone()
+        spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, k_max)
+        spmm_residue_cuda(g.row_ptr, g.col_idx, x, y2, k_max)
+        check(torch.equal(y, y2), f"spmm_residue is not deterministic on "
+                                  f"{label}")
+        full = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64, slab,
+                                k_max)
+        full_abs = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx,
+                                    x64.abs(), slab_abs, k_max)
+        row["spmm_residue_bound_ratio"] = self._agree(
+            "spmm_residue", label, y, full, full_abs, deg)
+        del x64, slab, slab_abs, full, full_abs, y2
+        slots = int(valid.sum())
+        tail_slots = int((deg - k_max).clamp(min=0).sum())
+        tail_rows = int((deg > k_max).sum())
+        row.update(slab_slots=slots, tail_slots=tail_slots,
+                   tail_rows=tail_rows, max_deg=int(deg.max()))
+        if reps:
+            lib_slab, lib_tail = library_csrs(g, neigh, valid, k_max, n_src)
+            # the library and the plain version both sum in float32, each
+            # in its own order: each is within the bound of the exact sum
+            def tail_of(t):
+                return spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, t,
+                                        torch.zeros_like(y), k_max)
+            for lib, plain, terms in (
+                    (lib_slab, lambda t: ell_spmm_ref(neigh, valid, t),
+                     deg.clamp(max=k_max)),
+                    (lib_tail, tail_of, (deg - k_max).clamp(min=0))):
+                err = (torch.sparse.mm(lib, x) - plain(x)).abs().double()
+                ratio = float((err / (2 * f32_bound(
+                    plain(x.abs()).double(), terms))).max())
+                check(ratio <= 1.0, f"a library yardstick computes another "
+                                    f"function on {label} (ratio {ratio})")
+            costs = dict(ell_spmm=slab_cost(n, k_max, slots, n_src, d),
+                         spmm_residue=residue_cost(n, tail_slots, tail_rows,
+                                                   n_src, d))
+            calls = dict(
+                ell_spmm=(lambda: ell_spmm_cuda(neigh, valid, x),
+                          lambda: ell_spmm_ref(neigh, valid, x),
+                          lambda: torch.sparse.mm(lib_slab, x)),
+                spmm_residue=(
+                    lambda: spmm_residue_cuda(g.row_ptr, g.col_idx, x, y,
+                                              k_max),
+                    lambda: spmm_residue_ref(g.row_ptr, g.src_idx,
+                                             g.col_idx, x, y, k_max),
+                    lambda: torch.sparse.mm(lib_tail, x)))
+            for name, (kern, plain, lib) in calls.items():
+                t = dict(ms=time_ms(kern, reps, flush),
+                         plain_ms=time_ms(plain, max(reps // 4, 3), flush),
+                         library_ms=time_ms(lib, reps, flush),
+                         bound_ms=costs[name][0], bound_by=costs[name][1])
+                row[name] = t
+                if timed:
+                    self.rec[name].update(t, timed_input=label)
+            del lib_slab, lib_tail
+        self.rows.append(row)
+        emit("gnn_kernel", **row)
+
+
+def gnn_kernel(chk, g_rmat, dev, reps, flush):
+    """Both kernels on a seeded ogb_products-shaped batch's aggregation
+    graph at d = 16 (the kernels line's timed input) and 47, a row subset
+    of it at d = 100 against all its source rows, and the scale-20 R-MAT
+    graph at d = 16, whose hubs give spmm_residue long tails."""
+    arch = get_arch("gcn-cora")
+    shape = arch.shape("ogb_products")
+    gb = gnn_batch(arch, shape, 0, seed=SEED + 2, device=dev)
+    adj = build_adjacency(gb)
+    n = gb.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    del gb
+    for d in (16, 47):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        chk.run(f"ogb_products fwd d={d}", adj.fwd, *adj.fwd_ell, x,
+                adj.k_max, reps, flush, timed=d == 16)
+    rows = min(1 << 18, n)
+    ends = int(adj.fwd.row_ptr[rows])
+    sub = CSRGraph(adj.fwd.row_ptr[:rows + 1], adj.fwd.col_idx[:ends],
+                   adj.fwd.src_idx[:ends])
+    x = torch.randn((n, 100), generator=gen, device=dev)
+    chk.run(f"ogb_products fwd rows<{rows} d=100", sub,
+            adj.fwd_ell[0][:rows], adj.fwd_ell[1][:rows], x, adj.k_max, 0,
+            flush)
+    del adj, x, sub
+    x = torch.randn((g_rmat.n, 16), generator=gen, device=dev)
+    neigh, valid = ell_pad(g_rmat, ELL_K_MAX)
+    chk.run("rmat scale-20 d=16", g_rmat, neigh, valid, x, ELL_K_MAX, reps,
+            flush)
+    for name, r in chk.rec.items():
+        emit("gnn_kernel", name=name, **r)
+
+
+def gcn_layers(dev, reps, flush):
+    """Where one gcn-cora training step at ogb_products spends its time:
+    data generation, the two CSRs and ELL slabs, forward, backward and
+    optimizer (host wall ms, each ending in a device sync), the kernels'
+    launches and device ms in a step, and the step's host syncs."""
+    arch = get_arch("gcn-cora")
+    shape = arch.shape("ogb_products")
+    cfg = effective_cfg(arch, shape)
+    init_fn, _ = param_builders(arch, shape)
+    params = {k: v.to(dev) for k, v in init_fn(
+        torch.Generator().manual_seed(SEED)).items()}
+    opt_state = init_opt_state(params, arch.opt)
+    step = make_step(arch, shape)
+    out = dict(shape=shape.shape_id, n=shape.dims["n_nodes"],
+               e=shape.dims["n_edges"], d_feat=cfg.d_feat,
+               d_hidden=cfg.d_hidden, n_classes=cfg.n_classes)
+    out["data_ms"] = wall_ms(
+        lambda: gnn_batch(arch, shape, 0, seed=SEED, device=dev), reps)
+    gb = gnn_batch(arch, shape, 0, seed=SEED, device=dev)
+    out["csr_ell_ms"] = wall_ms(lambda: build_adjacency(gb), reps)
+    adj = build_adjacency(gb)
+    fwd_ms, bwd_ms = [], []
+    for _ in range(reps + 1):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = gcn_loss(leaves, gb, cfg, adj)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((time.perf_counter() - t1) * 1e3)
+    out["forward_ms"] = statistics.median(fwd_ms[1:])
+    out["backward_ms"] = statistics.median(bwd_ms[1:])
+
+    def optimizer():
+        clipped, _ = clip_by_global_norm(grads, arch.opt.grad_clip)
+        adamw_update(params, clipped, opt_state, arch.opt)
+
+    out["optimizer_ms"] = wall_ms(optimizer, reps)
+    out["step_ms"] = wall_ms(lambda: step(params, opt_state, gb), reps)
+    common.reset_launches()
+    step(params, opt_state, gb)
+    torch.cuda.synchronize()
+    out["launches_per_step"] = {k: common.LAUNCHES[k] for k in GNN_KERNELS}
+    out["syncs_per_step"] = syncs_of(lambda: step(params, opt_state, gb))
+    # each kernel at the step's four shapes: forward and transposed graph,
+    # d = d_hidden (layer 0) and n_classes (layer 1)
+    per = {k: 0.0 for k in GNN_KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for d in (cfg.d_hidden, cfg.n_classes):
+        x = torch.randn((gb.n_nodes, d), generator=gen, device=dev)
+        for g, (neigh, valid) in ((adj.fwd, adj.fwd_ell),
+                                  (adj.bwd, adj.bwd_ell)):
+            y = ell_spmm_cuda(neigh, valid, x)
+            per["ell_spmm"] += time_ms(
+                lambda: ell_spmm_cuda(neigh, valid, x), reps, flush)
+            per["spmm_residue"] += time_ms(
+                lambda: spmm_residue_cuda(g.row_ptr, g.col_idx, x, y,
+                                          adj.k_max), reps, flush)
+    out["kernel_ms_per_step"] = per
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit("gcn_layers", **out)
+    check(out["launches_per_step"] == {k: 4 for k in GNN_KERNELS},
+          f"a gcn step launched {out['launches_per_step']}, not 4 each")
+    return out
+
+
+def rel_diff(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def run_gcn_path(dev):
+    """The Trainer on gcn-cora at ogb_products (1 warm-up step and 5
+    timed), with the launch counts of that run alone; then one step's loss
+    and gradients on the kernels against the plain aggregation on the same
+    card, and kill-and-resume at full_graph_sm. Returns the launches."""
+    arch = get_arch("gcn-cora")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    tr = Trainer(arch, "ogb_products", cfg=TrainerConfig(
+        steps=GCN_STEPS, log_every=1, seed=SEED))
+    log = tr.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in GNN_KERNELS:
+        check(launches[name] == 4 * GCN_STEPS,
+              f"{name} launched {launches[name]} times in {GCN_STEPS} steps, "
+              f"not 4 a step")
+    check(tr.device.type == "cuda", "the Trainer did not run on the GPU")
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    check(len(log) == GCN_STEPS and all(np.isfinite(losses + norms)),
+          "a gcn-cora loss or grad_norm is not finite")
+    check(all(v > 0 for v in norms), "a gcn-cora grad_norm is 0")
+    walls = [0.0] + [m["wall"] for m in log]
+    step_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+
+    # one step on the kernels against the plain aggregation, same card
+    shape = arch.shape("ogb_products")
+    cfg = effective_cfg(arch, shape)
+    gb = gnn_batch(arch, shape, 0, seed=SEED, device=dev)
+    adj = build_adjacency(gb)
+
+    def loss_grads(impl):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in tr.params.items()}
+        loss, _ = gcn_loss(leaves, gb, cfg, adj, impl)
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, list(leaves.values())))
+
+    kern, plain = loss_grads(spmm_aggregate), loss_grads(spmm_aggregate_ref)
+    diffs = [rel_diff(a, b) for a, b in zip(kern, plain)]
+    check(max(diffs) <= 1e-4, f"kernel and plain gcn steps differ: {diffs}")
+    del gb, adj, kern, plain
+
+    # kill-and-resume at full_graph_sm: 6 steps = 3, restart, 3 more
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(steps, sub, every):
+            return Trainer(arch, "full_graph_sm", cfg=TrainerConfig(
+                steps=steps, ckpt_every=every, log_every=1, seed=SEED,
+                ckpt_dir=os.path.join(tmp, sub)))
+        log_a = trainer(6, "a", 100).run()
+        trainer(3, "b", 3).run()
+        resumed = trainer(6, "b", 100)
+        log_b = resumed.run()
+    check(log_b[0]["step"] == 4, "the resumed run did not restart at step 4")
+    check(log_a[-1]["loss"] == log_b[-1]["loss"],
+          "kill-and-resume changed the final loss")
+    emit("gcn_train", entry="repro_torch.train.trainer.Trainer.run",
+         arch="gcn-cora", shape="ogb_products", steps=GCN_STEPS,
+         seconds=seconds, launches=launches,
+         launches_per_step={k: launches[k] / GCN_STEPS for k in GNN_KERNELS},
+         step_ms=step_ms, timed_step_ms_median=statistics.median(step_ms[1:]),
+         timed_step_ms_max=max(step_ms[1:]), peak_mem_bytes=peak,
+         losses=losses, grad_norms=norms,
+         kernel_vs_plain_rel_diff=dict(loss=diffs[0], grads=diffs[1:]),
+         kill_resume=dict(shape="full_graph_sm", steps=6,
+                          final_loss=log_a[-1]["loss"], exact=True))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -1011,10 +1368,21 @@ def main(argv=None) -> int:
     batched_launches = run_batched_path(g, args, res)
     sssp_launches, sssp_steps = run_sssp_path(wg, args)
 
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gchk = GnnKernelCheck()
+    gnn_kernel(gchk, g, dev, args.reps, flush)
+    gcn_layers(dev, max(args.reps // 4, 3), flush)
+    del flush
+    gcn_launches = run_gcn_path(dev)
+
     kernels = []
     for name in KERNELS:
         serial = name in SERIAL_KERNELS
-        if name in SSSP_KERNELS:
+        if name in GNN_KERNELS:
+            r, count = gchk.rec[name], gcn_launches[name]
+            per = dict(launches_per_step=count / GCN_STEPS,
+                       max_bound_ratio=r["max_bound_ratio"])
+        elif name in SSSP_KERNELS:
             r, count = rchk.rec[name], sssp_launches[name]
             per = dict(launches_per_step=count / sssp_steps)
         elif serial:

@@ -179,6 +179,24 @@ def from_weighted_edges(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     return from_numpy_weighted_graph(row_ptr, dst, src, w, device)
 
 
+def from_edge_tensors(rows: torch.Tensor, cols: torch.Tensor,
+                      mask: torch.Tensor, n: int) -> CSRGraph:
+    """A CSR graph from edge tensors, built on their device: row ``rows[e]``
+    holds neighbour ``cols[e]`` for every edge with ``mask[e]`` set.
+
+    Unlike ``from_edges`` nothing goes to the host and nothing is
+    symmetrised or deduplicated: direction and multi-edges are kept, and a
+    stable sort by row keeps duplicate edges in their input order. Dropping
+    the masked edges is the one host sync (the kept count)."""
+    keep = mask.nonzero().squeeze(1)
+    rows, cols = rows[keep], cols[keep]
+    src, order = torch.sort(rows.to(torch.int32), stable=True)
+    col_idx = cols.to(torch.int32)[order]
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=src.device)
+    row_ptr = torch.searchsorted(src, bounds, out_int32=True)
+    return CSRGraph(row_ptr=row_ptr, col_idx=col_idx, src_idx=src)
+
+
 def to_numpy_adj(g: CSRGraph) -> tuple[np.ndarray, np.ndarray]:
     """Host copies of (row_ptr, col_idx) for oracle/validator use."""
     return g.row_ptr.cpu().numpy(), g.col_idx.cpu().numpy()

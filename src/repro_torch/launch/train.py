@@ -1,0 +1,50 @@
+"""Training launcher, on the GPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \
+      [--shape ogb_products] [--reduced] [--steps N] [--ckpt-dir D] \
+      [--seed S] [--device cpu]
+
+``--reduced`` runs the small config of ``configs/reduced.py``; the default
+shape is the arch's first train shape (``full_graph_sm`` for gcn-cora).
+Without ``--device`` the run goes to the GPU and raises when there is none.
+Model parallelism is not ported (ROADMAP A9): ``--model-parallel`` above 1
+raises.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs.base import get_arch, list_archs
+from repro_torch.configs.reduced import reduce_arch
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--shape", default=None,
+                    help="train shape id (default: first train shape)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the GPU (raises without one)")
+    args = ap.parse_args(argv)
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 is not ported yet (ROADMAP A9)")
+
+    arch = reduce_arch(args.arch) if args.reduced else get_arch(args.arch)
+    shape_id = args.shape or next(s.shape_id for s in arch.shapes
+                                  if s.kind == "train")
+    trainer = Trainer(arch, shape_id, cfg=TrainerConfig(
+        steps=args.steps, ckpt_every=args.ckpt_every,
+        ckpt_dir=args.ckpt_dir, seed=args.seed), device=args.device)
+    return trainer.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,97 @@
+"""AdamW over a flat dict of parameter tensors (port of
+``repro/optim/adamw.py``, full second moment).
+
+Plain functions, no ``torch.optim``: the update repeats the reference's
+float32 arithmetic step by step (``bc1 = 1 - b1**t`` with ``t`` a float32
+tensor, ``denom = sqrt(v / bc2) + eps``, ``upd = m_hat / denom + wd * p``),
+which ``torch.optim.AdamW`` does not (it decays the weights apart and adds
+``eps`` elsewhere). The factored (Adafactor-style) second moment raises
+until the LM slice (ROADMAP A10) needs it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    factored: bool = False
+
+    @property
+    def mdt(self) -> torch.dtype:
+        return getattr(torch, self.moment_dtype)
+
+
+def _no_factored(cfg: OptConfig) -> None:
+    if cfg.factored:
+        raise NotImplementedError(
+            "factored AdamW is not ported yet (ROADMAP A10, the LM slice)")
+
+
+def init_opt_state(params: dict[str, torch.Tensor], cfg: OptConfig) -> dict:
+    """{"step": int32 scalar, "per_param": {name: {"m", "v"}}}, zeros on
+    each parameter's device."""
+    _no_factored(cfg)
+
+    def one(p):
+        st = {}
+        if cfg.b1 > 0:
+            st["m"] = torch.zeros_like(p, dtype=cfg.mdt)
+        st["v"] = torch.zeros_like(p, dtype=cfg.mdt)
+        return st
+
+    device = next(iter(params.values())).device if params else None
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "per_param": {k: one(p) for k, p in params.items()}}
+
+
+def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+              for x in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+    """(grads scaled to at most ``max_norm`` in global norm, the norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def adamw_update(params: dict[str, torch.Tensor],
+                 grads: dict[str, torch.Tensor], state: dict,
+                 cfg: OptConfig):
+    """Returns (new_params, new_state); the inputs are left as they are."""
+    _no_factored(cfg)
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(cfg.b1, t)
+    bc2 = 1.0 - torch.pow(cfg.b2, t)
+    new_params, new_per = {}, {}
+    for name, p in params.items():
+        g32 = grads[name].to(torch.float32)
+        st = state["per_param"][name]
+        new_st = {}
+        if cfg.b1 > 0:
+            m = st["m"].to(torch.float32) * cfg.b1 + g32 * (1 - cfg.b1)
+            new_st["m"] = m.to(cfg.mdt)
+            m_hat = m / bc1
+        else:
+            m_hat = g32
+        v = st["v"].to(torch.float32) * cfg.b2 + g32 * g32 * (1 - cfg.b2)
+        new_st["v"] = v.to(cfg.mdt)
+        denom = torch.sqrt(v / bc2) + cfg.eps
+        upd = m_hat / denom + cfg.weight_decay * p.to(torch.float32)
+        new_params[name] = (p.to(torch.float32) - cfg.lr * upd).to(p.dtype)
+        new_per[name] = new_st
+    return new_params, {"step": step, "per_param": new_per}

@@ -20,7 +20,12 @@ from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
                                          uniform_random_weighted_graph)
 from repro_torch.graph.graph500 import run_graph500
 from repro_torch.benchmarks import sssp_teps
+from repro_torch.configs.reduced import reduce_arch
+from repro_torch.data.pipeline import gnn_batch
 from repro_torch.launch import bfs as launch_bfs
+from repro_torch.launch import train as launch_train
+from repro_torch.models.gnn.gcn import gcn_params_from_numpy
+from repro_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -51,7 +56,15 @@ def test_port_files_are_found():
             "kernels/relax_fallback/kernel.py",
             "kernels/relax_fallback/ref.py", "kernels/relax_fallback/ops.py",
             "traversal/semiring.py", "traversal/sssp.py", "traversal/ref.py",
-            "benchmarks/sssp_teps.py"} <= names
+            "benchmarks/sssp_teps.py",
+            "configs/base.py", "configs/gnn_shapes.py", "configs/gcn_cora.py",
+            "configs/all.py", "configs/reduced.py", "optim/adamw.py",
+            "models/layers.py", "models/gnn/common.py", "models/gnn/gcn.py",
+            "data/pipeline.py", "train/checkpoint.py", "train/trainer.py",
+            "launch/train.py", "kernels/ell_spmm/kernel.py",
+            "kernels/ell_spmm/ref.py", "kernels/ell_spmm/ops.py",
+            "kernels/spmm_residue/kernel.py", "kernels/spmm_residue/ref.py",
+            "kernels/spmm_residue/ops.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -117,6 +130,18 @@ def test_entry_points_raise_without_gpu(no_gpu):
         run_graph500(6, 4, num_roots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_bfs.main(["--scale", "6", "--roots", "2"])
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu):
+    arch = reduce_arch("gcn-cora")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(arch, "full_graph_sm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "gcn-cora", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn_batch(arch, arch.shape("full_graph_sm"), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gcn_params_from_numpy({"layers": [{"w": np.zeros((2, 2))}]})
 
 
 def test_explicit_cpu_still_runs(no_gpu):

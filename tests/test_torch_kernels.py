@@ -17,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import make_step, param_builders
+from repro_torch.configs.reduced import reduce_arch
 from repro_torch.core import bitmap
-from repro_torch.core.csr import from_numpy_graph, from_weighted_edges
+from repro_torch.core.csr import (ell_pad, from_numpy_graph,
+                                  from_weighted_edges)
 from repro_torch.core.hybrid import bfs
 from repro_torch.core.msbfs import msbfs_pipelined
 from repro_torch.core.topdown import topdown_step
@@ -28,6 +31,9 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bottom_up_probe.kernel import bottom_up_probe_cuda
 from repro_torch.kernels.bottom_up_probe.ops import bottom_up_probe
 from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
+from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda
+from repro_torch.kernels.ell_spmm.ops import spmm_aggregate
+from repro_torch.kernels.ell_spmm.ref import ell_spmm_ref
 from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda
 from repro_torch.kernels.msbfs_probe.ops import msbfs_probe
 from repro_torch.kernels.msbfs_probe.ref import msbfs_probe_ref
@@ -40,10 +46,15 @@ from repro_torch.kernels.segment_or.ref import segment_or_rows_ref
 from repro_torch.kernels.semiring_relax.kernel import semiring_relax_cuda
 from repro_torch.kernels.semiring_relax.ops import semiring_relax
 from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref
+from repro_torch.kernels.spmm_residue.kernel import spmm_residue_cuda
+from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
 from repro_torch.kernels.topdown_scan.ops import topdown_scan
 from repro_torch.kernels.topdown_scan.ref import (topdown_best_ref,
                                                   topdown_scan_ref)
+from repro_torch.models.gnn.common import (build_adjacency,
+                                           synthetic_graph_batch)
+from repro_torch.optim.adamw import init_opt_state
 from repro_torch.traversal.sssp import sssp_pipelined
 
 
@@ -182,6 +193,7 @@ def test_cpu_path_launches_no_kernel():
     vals = torch.zeros((g.n, 3))
     acc = semiring_relax(g.row_ptr, g.col_idx, w, vals, 8)
     relax_fallback(g.row_ptr, g.src_idx, g.col_idx, w, vals, acc, 8)
+    spmm_aggregate(g, torch.ones((g.n, 4)), 8)
     assert common.LAUNCHES == before
 
 
@@ -205,6 +217,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         relax_fallback_cuda(torch.zeros(5, dtype=torch.int32), x, x, w, vals,
                             vals, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ell_spmm_cuda(words, torch.zeros((4, 2), dtype=torch.bool), vals)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmm_residue_cuda(torch.zeros(5, dtype=torch.int32), x, vals, vals, 8)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -218,9 +234,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     names = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
-    assert names == ["bottom_up_probe.cu", "msbfs_probe.cu",
+    assert names == ["bottom_up_probe.cu", "ell_spmm.cu", "msbfs_probe.cu",
                      "relax_fallback.cu", "segment_or.cu", "semiring_relax.cu",
-                     "topdown_scan.cu"]
+                     "spmm_residue.cu", "topdown_scan.cu"]
     assert set(common.LAUNCHES) == {p[:-3] for p in names}
     assert "arch=compute_90a,code=sm_90a" in common.NVCC_FLAGS
     assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
@@ -391,3 +407,96 @@ def test_sssp_pipelined_on_gpu_matches_cpu(cuda_device, delta):
         assert torch.equal(a.cpu(), b), name
     assert common.LAUNCHES["semiring_relax"] > 0
     assert common.LAUNCHES["relax_fallback"] > 0
+
+
+def f32_bound(abs_sum64, deg):
+    """Float32's summation bound for rows of ``deg`` terms against their
+    float64 sum: 2 * deg * 2**-24 * sum |x_u| + 1e-7."""
+    return 2.0 * deg.double()[:, None] * 2.0 ** -24 * abs_sum64 + 1e-7
+
+
+@pytest.mark.parametrize("d", [1, 16, 47, 100, 130])
+@pytest.mark.parametrize("k_max", [1, 4, 16])
+def test_ell_kernels_cuda_match_plain(cuda_device, d, k_max):
+    """ell_spmm and spmm_residue (in place) against their plain versions in
+    float64, within float32's summation bound, on an R-MAT graph (rows of
+    degree 0 and hubs deeper than k_max) with more feature rows than graph
+    rows; two launches give the same bits."""
+    g = rmat_graph(10, 16, seed=d + k_max, device=cuda_device)
+    rng = np.random.default_rng(d * k_max)
+    x = torch.from_numpy(rng.standard_normal((g.n + 37, d)).astype(
+        np.float32)).to(cuda_device)
+    neigh, valid = ell_pad(g, k_max)
+    before = dict(common.LAUNCHES)
+    y = ell_spmm_cuda(neigh, valid, x)
+    assert torch.equal(ell_spmm_cuda(neigh, valid, x), y)
+    x64 = x.double()
+    slab = ell_spmm_ref(neigh, valid, x64)
+    slab_abs = ell_spmm_ref(neigh, valid, x64.abs())
+    assert bool(((y.double() - slab).abs()
+                 <= f32_bound(slab_abs, g.deg.clamp(max=k_max))).all())
+    y2 = y.clone()
+    out = spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, k_max)
+    assert out is y
+    spmm_residue_cuda(g.row_ptr, g.col_idx, x, y2, k_max)
+    assert torch.equal(y, y2)
+    full = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64,
+                            slab.clone(), k_max)
+    full_abs = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64.abs(),
+                                slab_abs.clone(), k_max)
+    assert bool(((y.double() - full).abs()
+                 <= f32_bound(full_abs, g.deg)).all())
+    assert bool((g.deg == 0).any()) and bool((g.deg > k_max).any())
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["ell_spmm"] == before["ell_spmm"] + 2
+    assert common.LAUNCHES["spmm_residue"] == before["spmm_residue"] + 2
+
+
+def test_ell_kernels_cuda_empty_and_degree_zero(cuda_device):
+    """An empty graph, and a graph whose rows all have degree 0."""
+    g0 = from_numpy_graph(np.zeros(1), np.zeros(0), np.zeros(0), cuda_device)
+    x = torch.ones((5, 3), device=cuda_device)
+    neigh, valid = ell_pad(g0, 4)
+    assert ell_spmm_cuda(neigh, valid, x).shape == (0, 3)
+    g = from_numpy_graph(np.zeros(51), np.zeros(0), np.zeros(0), cuda_device)
+    neigh, valid = ell_pad(g, 4)
+    y = ell_spmm_cuda(neigh, valid, x)
+    assert y.shape == (50, 3) and not bool(y.any())
+    assert spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, 4) is y
+    assert not bool(y.any())
+
+
+def test_gcn_train_steps_on_gpu_match_cpu(cuda_device):
+    """Three steps of the reduced gcn-cora at full_graph_sm on the card,
+    from the same parameters and batches as on the CPU, within rtol 1e-4;
+    each step launches each aggregation kernel 4 times (2 layers, forward
+    and backward)."""
+    arch = reduce_arch("gcn-cora")
+    shape = arch.shape("full_graph_sm")
+    init_fn, _ = param_builders(arch, shape)
+    p_cpu = init_fn(torch.Generator().manual_seed(0))
+    p_gpu = {k: v.to(cuda_device) for k, v in p_cpu.items()}
+    s_cpu = init_opt_state(p_cpu, arch.opt)
+    s_gpu = init_opt_state(p_gpu, arch.opt)
+    step = make_step(arch, shape)
+    d = shape.dims
+    for k in range(3):
+        gb = synthetic_graph_batch(torch.Generator().manual_seed(k),
+                                   d["n_nodes"], d["n_edges"], d["d_feat"],
+                                   d["n_classes"])
+        gb_gpu = gb._replace(**{f: getattr(gb, f).to(cuda_device) for f in (
+            "senders", "receivers", "edge_mask", "feats", "pos", "labels",
+            "node_mask", "graph_ids")})
+        common.reset_launches()
+        p_gpu, s_gpu, m_gpu = step(p_gpu, s_gpu, gb_gpu)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["ell_spmm"] == 4
+        assert common.LAUNCHES["spmm_residue"] == 4
+        p_cpu, s_cpu, m_cpu = step(p_cpu, s_cpu, gb)
+        for name in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m_gpu[name]), float(m_cpu[name]),
+                                       rtol=1e-4)
+    for name in p_cpu:
+        np.testing.assert_allclose(p_gpu[name].cpu().numpy(),
+                                   p_cpu[name].numpy(), rtol=1e-4, atol=1e-6)
+    assert build_adjacency(gb_gpu).fwd.device.type == "cuda"
