@@ -121,7 +121,7 @@ from repro_torch.kernels.semiring_relax.kernel import (  # noqa: E402
     semiring_relax_cuda)
 from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref  # noqa: E402
 from repro_torch.kernels.spmm_residue.kernel import (  # noqa: E402
-    spmm_residue_cuda)
+    residue_scratch, spmm_residue_cuda)
 from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
@@ -184,6 +184,7 @@ GNN_KERNELS = ("ell_spmm", "spmm_residue")
 GCN_STEPS = 6  # the Trainer's run: 1 warm-up step and 5 timed
 LANES = 64
 SSSP_LANES = 32
+SWEEP_TIMED_ROW = 20  # sssp_layers times relax_fallback in full from here
 INF = float("inf")
 
 
@@ -768,6 +769,47 @@ class RelaxKernelCheck:
     def gathered_rows(self, slots):
         return int(torch.unique(self.wg.col_idx[slots]).numel())
 
+    def time_fold(self, label, ra, fa, reps, flush):
+        """relax_fallback's times on one input (``relax``'s args), its
+        bound, and its library yardstick: one scatter_reduce(amin) over the
+        residue slots' candidates, built outside the timing, from the
+        probe's result. fa's base is folded first: a second fold finds
+        nothing lower, so every timed run does the same work."""
+        wg = self.wg
+        w, vals = ra[3], ra[4]
+        lanes = vals.shape[1]
+        relax_fallback_cuda(*fa)
+        acc = semiring_relax_cuda(*ra)
+        slots = torch.nonzero(self.residue_slots).squeeze(1)
+        cand = vals[wg.col_idx[slots].long()] + w[slots][:, None]
+        index = wg.src_idx[slots].long()[:, None].expand(-1, lanes)
+
+        def library():
+            return torch.scatter_reduce(acc, 0, index, cand, "amin")
+
+        check(torch.equal(library(), fa[5]),
+              f"the fold's library yardstick computes another function on "
+              f"{label}")
+        active = torch.isfinite(vals).any(dim=1)
+        fin = self.residue_slots & torch.isfinite(w)
+        live = fin & active[wg.col_idx.long()]
+        residue_rows = int((wg.deg > MAX_POS).sum())
+        cost = fallback_cost(wg.n, lanes, slots.numel(), int(fin.sum()),
+                             self.gathered_rows(fin), residue_rows)
+        out = dict(ms=time_ms(lambda: relax_fallback_cuda(*fa), reps, flush),
+                   plain_ms=time_ms(lambda: relax_fallback_ref(*fa), reps,
+                                    flush),
+                   library_ms=time_ms(library, reps, flush),
+                   bound_ms=cost[0], bound_by=cost[1],
+                   timed_input=dict(case=label, vertices=wg.n,
+                                    residue_slots=slots.numel(),
+                                    finite_residue_slots=int(fin.sum()),
+                                    live_residue_slots=int(live.sum()),
+                                    active_rows=int(active.sum()),
+                                    residue_rows=residue_rows))
+        del cand, index, slots
+        return out
+
 
 def phase_masks(wg, delta):
     """The light and heavy edge weights of bucket width ``delta``."""
@@ -794,46 +836,36 @@ def relax_kernel_random(chk, dev, reps, flush, delta):
         if lanes != SSSP_LANES:
             continue
         probe = int(chk.probe_slots.sum())
-        residue = wg.m - probe
-        residue_rows = int((wg.deg > MAX_POS).sum())
         probe_fin = chk.probe_slots & torch.isfinite(ra[3])
-        residue_fin = chk.residue_slots & torch.isfinite(ra[3])
         cost = relax_cost(n, lanes, probe, int(probe_fin.sum()),
                           chk.gathered_rows(probe_fin))
+        # the probe's library yardstick, by the fold's convention: one
+        # scatter_reduce(amin) over the probe slots' candidates, built
+        # outside the timing, into +inf
+        slots = torch.nonzero(chk.probe_slots).squeeze(1)
+        cand = vals[wg.col_idx[slots].long()] + ra[3][slots][:, None]
+        index = wg.src_idx[slots].long()[:, None].expand(-1, lanes)
+        empty = torch.full((n, lanes), INF, device=dev)
+
+        def library():
+            return torch.scatter_reduce(empty, 0, index, cand, "amin")
+
+        check(torch.equal(library(), semiring_relax_cuda(*ra)),
+              "the probe's library yardstick computes another function")
         chk.rec["semiring_relax"].update(
             ms=time_ms(lambda: semiring_relax_cuda(*ra), reps, flush),
             plain_ms=time_ms(lambda: semiring_relax_ref(*ra), reps, flush),
-            bound_ms=cost[0], bound_by=cost[1], library_ms=None,
+            bound_ms=cost[0], bound_by=cost[1],
+            library_ms=time_ms(library, reps, flush),
             timed_input=dict(case=f"random L={lanes} heavy", vertices=n,
                              probe_slots=probe,
                              finite_probe_slots=int(probe_fin.sum())))
-        # fa's base is the fold's result by now: a second fold finds
-        # nothing lower, so every timed run does the same work; the library
-        # yardstick (one scatter_reduce(amin) over the residue slots'
-        # candidates, built outside the timing) starts from the probe's
-        acc = semiring_relax_cuda(*ra)
-        slots = torch.nonzero(chk.residue_slots).squeeze(1)
-        rows = wg.src_idx[slots].long()
-        cand = vals[wg.col_idx[slots].long()] + fa[3][slots][:, None]
-        index = rows[:, None].expand(-1, lanes)
-
-        def library():
-            return torch.scatter_reduce(acc, 0, index, cand, "amin")
-
-        check(torch.equal(library(), fa[5]),
-              "the library yardstick computes another function")
-        cost = fallback_cost(n, lanes, residue, int(residue_fin.sum()),
-                             chk.gathered_rows(residue_fin), residue_rows)
-        chk.rec["relax_fallback"].update(
-            ms=time_ms(lambda: relax_fallback_cuda(*fa), reps, flush),
-            plain_ms=time_ms(lambda: relax_fallback_ref(*fa), reps, flush),
-            library_ms=time_ms(library, reps, flush),
-            bound_ms=cost[0], bound_by=cost[1],
-            timed_input=dict(case=f"random L={lanes} heavy", vertices=n,
-                             residue_slots=residue,
-                             finite_residue_slots=int(residue_fin.sum()),
-                             residue_rows=residue_rows))
-        del cand, index, slots, rows
+        del cand, index, slots, empty
+        # every row has a finite lane and 97 % of the weights are finite
+        # here, so nearly every residue slot gathers; the sweep's light and
+        # heavy inputs (sssp_layers) show the fold on the engine's own data
+        chk.rec["relax_fallback"].update(chk.time_fold(
+            f"random L={lanes} heavy", ra, fa, reps, flush))
 
 
 def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
@@ -841,7 +873,9 @@ def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
     step: the lanes in each phase, the host syncs of a step and its wall
     time, and each relax kernel's time on the step's own inputs (which go
     through both kernels against their plain versions on the first four
-    steps and every 20th)."""
+    steps and every 20th). relax_fallback is timed in full (plain version,
+    library yardstick, bound) on the light and the heavy input of the
+    first step from row SWEEP_TIMED_ROW on that has each."""
     s = sssp_engine_enqueue(sssp_engine_init(wg, len(roots), SSSP_LANES),
                             roots)
     rows = []
@@ -866,6 +900,10 @@ def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
             row[f"{phase}_fold_ms"] = time_ms(
                 lambda: relax_fallback_cuda(*fa), reps, flush)
             relax_ms += row[f"{phase}_probe_ms"] + row[f"{phase}_fold_ms"]
+            sweep = chk.rec["relax_fallback"].setdefault("sweep_inputs", {})
+            if len(rows) >= SWEEP_TIMED_ROW and phase not in sweep:
+                sweep[phase] = chk.time_fold(f"sweep step {step} {phase}",
+                                             ra, fa, reps, flush)
         row["relax_ms"] = relax_ms
         row["outside_relax_ms"] = row["step_ms"] - relax_ms
         rows.append(row)
@@ -1059,8 +1097,8 @@ class GnnKernelCheck:
         row["ell_spmm_bound_ratio"] = self._agree(
             "ell_spmm", label, y, slab, slab_abs, deg.clamp(max=k_max))
         y2 = y.clone()
-        spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, k_max)
-        spmm_residue_cuda(g.row_ptr, g.col_idx, x, y2, k_max)
+        spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y, k_max)
+        spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y2, k_max)
         check(torch.equal(y, y2), f"spmm_residue is not deterministic on "
                                   f"{label}")
         full = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64, slab,
@@ -1099,8 +1137,8 @@ class GnnKernelCheck:
                           lambda: ell_spmm_ref(neigh, valid, x),
                           lambda: torch.sparse.mm(lib_slab, x)),
                 spmm_residue=(
-                    lambda: spmm_residue_cuda(g.row_ptr, g.col_idx, x, y,
-                                              k_max),
+                    lambda: spmm_residue_cuda(g.row_ptr, g.src_idx,
+                                              g.col_idx, x, y, k_max),
                     lambda: spmm_residue_ref(g.row_ptr, g.src_idx,
                                              g.col_idx, x, y, k_max),
                     lambda: torch.sparse.mm(lib_tail, x)))
@@ -1110,6 +1148,8 @@ class GnnKernelCheck:
                          library_ms=time_ms(lib, reps, flush),
                          bound_ms=costs[name][0], bound_by=costs[name][1])
                 row[name] = t
+                self.rec[name].setdefault("inputs", []).append(
+                    dict(case=label, **t))
                 if timed:
                     self.rec[name].update(t, timed_input=label)
             del lib_slab, lib_tail
@@ -1211,9 +1251,13 @@ def gcn_layers(dev, reps, flush):
             per["ell_spmm"] += time_ms(
                 lambda: ell_spmm_cuda(neigh, valid, x), reps, flush)
             per["spmm_residue"] += time_ms(
-                lambda: spmm_residue_cuda(g.row_ptr, g.col_idx, x, y,
-                                          adj.k_max), reps, flush)
+                lambda: spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx,
+                                          x, y, adj.k_max), reps, flush)
     out["kernel_ms_per_step"] = per
+    # spmm_residue's scratch, allocated anew by each call: the largest
+    out["spmm_residue_scratch_bytes"] = max(
+        residue_scratch(g.m, d)[1] for g in (adj.fwd, adj.bwd)
+        for d in (cfg.d_hidden, cfg.n_classes))
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     emit("gcn_layers", **out)
     check(out["launches_per_step"] == {k: 4 for k in GNN_KERNELS},
@@ -1381,10 +1425,13 @@ def main(argv=None) -> int:
         if name in GNN_KERNELS:
             r, count = gchk.rec[name], gcn_launches[name]
             per = dict(launches_per_step=count / GCN_STEPS,
-                       max_bound_ratio=r["max_bound_ratio"])
+                       max_bound_ratio=r["max_bound_ratio"],
+                       inputs=r["inputs"])
         elif name in SSSP_KERNELS:
             r, count = rchk.rec[name], sssp_launches[name]
             per = dict(launches_per_step=count / sssp_steps)
+            if "sweep_inputs" in r:
+                per["sweep_inputs"] = r["sweep_inputs"]
         elif serial:
             # the serial harness runs one BFS per root plus a warm-up root
             r, count = rec[name], launches[name]

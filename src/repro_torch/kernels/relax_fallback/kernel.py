@@ -5,7 +5,8 @@ Stands in for the reference's ``_relax_fallback`` and the tropical
 ``segment_reduce`` (an XLA ``associative_scan``) it runs
 (``repro/traversal/semiring.py:120-131``); no Pallas kernel covers it. The
 source file notes what bounds the kernel on the H100 and how its design
-answers it.
+answers it: fixed segments of slots, each row's residue read 32 weights a
+round and only its live slots gathered.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@
 Stands in for the XLA ``segment_sum`` tail of
 ``repro/kernels/ell_spmm/ops.py::spmm_aggregate`` (lines 28-31); no Pallas
 kernel covers it. The source file notes what bounds the kernel on the H100
-and how its design answers it.
+and how its design answers it: a fold over fixed segments of ``SEG`` slots,
+then a merge of the rows split across segments, in segment order.
 """
 from __future__ import annotations
 
@@ -17,25 +18,36 @@ from repro_torch.kernels import common
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _entry = None
+SEG = 1024  # edge slots per segment of the fold
+
+
+def residue_scratch(m: int, d: int) -> tuple[int, int]:
+    """(segments, scratch bytes) of the fold over ``m`` edge slots at width
+    ``d``: ``segments = ceil(m / SEG)``; the scratch is 2 * segments * d
+    float32 partial sums and one int32 row number a segment."""
+    segments = common.cdiv(m, SEG)
+    return segments, 4 * (2 * segments * d + segments)
 
 
 def _launcher():
     global _entry
     if _entry is None:
         fn = common.load_library().spmm_residue_launch
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       ctypes.c_longlong, _I, _I, _P]
         fn.restype = _I
         _entry = fn
     return _entry
 
 
-def spmm_residue_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
-                      x: torch.Tensor, y: torch.Tensor,
+def spmm_residue_cuda(row_ptr: torch.Tensor, src_idx: torch.Tensor,
+                      col_idx: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       k_max: int = 16) -> torch.Tensor:
     """Launch the residue fold, which adds each row's slots at positions
     >= k_max into ``y`` in place and returns it. row_ptr int32[n+1],
-    col_idx int32[m], x float32[n_src, d], y float32[n, d], all contiguous
-    on one CUDA device. Raises on anything else."""
+    src_idx and col_idx int32[m], x float32[n_src, d], y float32[n, d],
+    all contiguous on one CUDA device. Raises on anything else. Its
+    scratch (``residue_scratch``) comes from ``torch.empty``."""
     if x.dim() != 2 or y.dim() != 2:
         raise ValueError("x and y must be 2-D")
     n, d = y.shape
@@ -43,17 +55,23 @@ def spmm_residue_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     dev = y.device
     common.check_cuda_tensor("row_ptr", row_ptr, n + 1, dev)
     common.check_cuda_tensor("col_idx", col_idx, device=dev)
+    m = col_idx.numel()
+    common.check_cuda_tensor("src_idx", src_idx, m, dev)
     common.check_cuda_tensor("x", x, device=dev, width=d,
                              dtype=torch.float32)
     common.check_cuda_tensor("y", y, n * d, dev, width=d,
                              dtype=torch.float32)
-    if n == 0 or d == 0 or n_src == 0 or col_idx.numel() == 0:
+    if n == 0 or d == 0 or n_src == 0 or m == 0:
         return y
+    segments, _ = residue_scratch(m, d)
+    part = torch.empty(2 * segments * d, dtype=torch.float32, device=dev)
+    part_row = torch.empty(segments, dtype=torch.int32, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
-        err = launch(row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
-                     y.data_ptr(), n, n_src, d, int(k_max),
-                     common.sm_count(dev),
+        err = launch(row_ptr.data_ptr(), src_idx.data_ptr(),
+                     col_idx.data_ptr(), x.data_ptr(), y.data_ptr(),
+                     part.data_ptr(), part_row.data_ptr(), n, n_src, d,
+                     int(k_max), segments, SEG, common.sm_count(dev),
                      torch.cuda.current_stream(dev).cuda_stream)
     common.check_launch("spmm_residue", err)
     common.LAUNCHES["spmm_residue"] += 1

@@ -21,7 +21,8 @@ from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref
 def spmm_residue(g: CSRGraph, x: torch.Tensor, y: torch.Tensor,
                  k_max: int = 16) -> torch.Tensor:
     if g.col_idx.device.type == "cuda":
-        return spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, k_max)
+        return spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y,
+                                 k_max)
     if g.col_idx.device.type == "cpu":
         return spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x, y, k_max)
     raise ValueError(f"no spmm_residue for device {g.col_idx.device}")

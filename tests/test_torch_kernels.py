@@ -46,7 +46,8 @@ from repro_torch.kernels.segment_or.ref import segment_or_rows_ref
 from repro_torch.kernels.semiring_relax.kernel import semiring_relax_cuda
 from repro_torch.kernels.semiring_relax.ops import semiring_relax
 from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref
-from repro_torch.kernels.spmm_residue.kernel import spmm_residue_cuda
+from repro_torch.kernels.spmm_residue.kernel import (SEG, residue_scratch,
+                                                     spmm_residue_cuda)
 from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
 from repro_torch.kernels.topdown_scan.ops import topdown_scan
@@ -220,7 +221,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ell_spmm_cuda(words, torch.zeros((4, 2), dtype=torch.bool), vals)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        spmm_residue_cuda(torch.zeros(5, dtype=torch.int32), x, vals, vals, 8)
+        spmm_residue_cuda(torch.zeros(5, dtype=torch.int32), x, x, vals, vals,
+                          8)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -390,6 +392,39 @@ def test_relax_kernels_cuda_match_plain(cuda_device, lanes, max_pos):
     assert int(g.deg[0]) > 100 * max_pos
 
 
+@pytest.mark.parametrize("lanes", [1, 32, 33])
+@pytest.mark.parametrize("max_pos", [1, 8])
+def test_relax_fallback_cuda_sparse_live_slots(cuda_device, lanes, max_pos):
+    """relax_fallback as the engine's light relax meets it: about 3 % of
+    the weights finite (most 32-slot chunks hold no live slot, or a few)
+    and 90 % of the source rows +inf in every lane, rows of degree max_pos
+    and max_pos + 1, a row over several segments and rows straddling
+    32-slot chunks: bit-equal to the plain version."""
+    rng = np.random.default_rng(lanes * max_pos)
+    n = 4000
+    deg = rng.integers(0, 70, n)
+    deg[:4] = (max_pos, max_pos + 1, 3 * 512 + 40, 0)
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, src.size)
+    g = from_weighted_edges(src, dst, rng.uniform(0, 1, src.size), n,
+                            symmetrize=False, drop_self_loops=False,
+                            device=cuda_device)
+    w = g.weights.clone()
+    w[torch.from_numpy(rng.random(g.m) >= 0.03).to(cuda_device)] = float("inf")
+    vals = relax_values(n + 5, lanes, lanes, cuda_device)
+    vals[torch.from_numpy(rng.random(n + 5) < 0.9).to(cuda_device)] = float(
+        "inf")
+    base = semiring_relax_cuda(g.row_ptr[:-1], g.deg, g.col_idx, w, vals,
+                               max_pos)
+    args = (g.row_ptr, g.src_idx, g.col_idx, w, vals)
+    want = relax_fallback_ref(*args, base.clone(), max_pos)
+    got = relax_fallback_cuda(*args, base.clone(), max_pos)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(want, base)  # the residue lowered some lanes
+    starts = g.row_ptr[:-1].long()
+    assert bool(((starts % 32 > 24) & (g.deg > 16)).any())  # straddlers
+
+
 @pytest.mark.parametrize("delta", [None, "tuple"])
 def test_sssp_pipelined_on_gpu_matches_cpu(cuda_device, delta):
     """The weighted slice on the card, with lane refills: every SSSPResult
@@ -436,9 +471,9 @@ def test_ell_kernels_cuda_match_plain(cuda_device, d, k_max):
     assert bool(((y.double() - slab).abs()
                  <= f32_bound(slab_abs, g.deg.clamp(max=k_max))).all())
     y2 = y.clone()
-    out = spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, k_max)
+    out = spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y, k_max)
     assert out is y
-    spmm_residue_cuda(g.row_ptr, g.col_idx, x, y2, k_max)
+    spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y2, k_max)
     assert torch.equal(y, y2)
     full = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64,
                             slab.clone(), k_max)
@@ -452,6 +487,62 @@ def test_ell_kernels_cuda_match_plain(cuda_device, d, k_max):
     assert common.LAUNCHES["spmm_residue"] == before["spmm_residue"] + 2
 
 
+def segment_graph(k_max, device):
+    """A CSR whose rows meet every case of spmm_residue's segments: a hub
+    whose tail spans three segments, a tail ending exactly on a segment
+    boundary, a tail of exactly one segment (starting and ending on
+    boundaries), rows of degree 0, k_max and k_max + 1, a second hub
+    whose tail starts mid-segment, then 3000 rows of 0-40 neighbours."""
+    rng = np.random.default_rng(k_max)
+    hub = k_max + 3 * SEG + 5
+    deg = [hub, 4 * SEG - hub, SEG - k_max, k_max + SEG, 0, k_max,
+           k_max + 1, 2 * SEG + 300]
+    deg = np.array(deg + list(rng.integers(0, 41, 3000)))
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    assert row_ptr[2] == 4 * SEG and row_ptr[3] + k_max == 5 * SEG
+    n = deg.size
+    col = rng.integers(0, n + 37, row_ptr[-1])
+    return from_numpy_graph(row_ptr, col, np.repeat(np.arange(n), deg),
+                            device)
+
+
+def test_residue_scratch_bound():
+    """The fold's segments cover every slot, and its scratch is 2 *
+    segments * d floats plus an int32 a segment."""
+    assert residue_scratch(0, 16) == (0, 0)
+    assert residue_scratch(SEG, 16) == (1, 4 * (2 * 16 + 1))
+    assert residue_scratch(SEG + 1, 47) == (2, 4 * (2 * 2 * 47 + 2))
+    for m in (1, SEG - 1, 5 * SEG, 61_859_140):
+        segments, _ = residue_scratch(m, 1)
+        assert (segments - 1) * SEG < m <= segments * SEG
+
+
+@pytest.mark.parametrize("d", [16, 47])
+@pytest.mark.parametrize("k_max", [4, 16])
+def test_spmm_residue_cuda_segments(cuda_device, d, k_max):
+    """spmm_residue on rows split across its fixed segments (hub tails,
+    tails on segment boundaries): within float32's summation bound of the
+    float64 plain version, and two launches give the same bits."""
+    g = segment_graph(k_max, cuda_device)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((g.n + 37, d)).astype(
+        np.float32)).to(cuda_device)
+    y0 = torch.from_numpy(rng.standard_normal((g.n, d)).astype(
+        np.float32)).to(cuda_device)
+    y, y2 = y0.clone(), y0.clone()
+    spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y, k_max)
+    spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y2, k_max)
+    assert torch.equal(y, y2)
+    x64 = x.double()
+    want = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64,
+                            y0.double(), k_max)
+    want_abs = spmm_residue_ref(g.row_ptr, g.src_idx, g.col_idx, x64.abs(),
+                                y0.double().abs(), k_max)
+    assert bool(((y.double() - want).abs()
+                 <= f32_bound(want_abs, g.deg + 1)).all())
+    assert not torch.equal(y, y0)
+
+
 def test_ell_kernels_cuda_empty_and_degree_zero(cuda_device):
     """An empty graph, and a graph whose rows all have degree 0."""
     g0 = from_numpy_graph(np.zeros(1), np.zeros(0), np.zeros(0), cuda_device)
@@ -462,7 +553,7 @@ def test_ell_kernels_cuda_empty_and_degree_zero(cuda_device):
     neigh, valid = ell_pad(g, 4)
     y = ell_spmm_cuda(neigh, valid, x)
     assert y.shape == (50, 3) and not bool(y.any())
-    assert spmm_residue_cuda(g.row_ptr, g.col_idx, x, y, 4) is y
+    assert spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y, 4) is y
     assert not bool(y.any())
 
 
