@@ -33,7 +33,9 @@ phase prints one JSON line:
            against their plain versions on seeded random lane values (L =
            1, 3 and 32, a quarter of the sources active) under the light
            and heavy weight masks of default_delta, and on the phase inputs
-           of the first steps (and every 20th) of one sweep;
+           of the first steps (and every 20th) of one sweep; both timed on
+           the random L = 32 heavy input and on the sweep's light and heavy
+           inputs;
   sssp_layers     where that sweep (32 sources in 32 lanes) spends its
            time, step by step, with the host syncs of a step;
   sssp     the delta-stepping engine through sssp_pipelined (32 sources in
@@ -41,11 +43,12 @@ phase prints one JSON line:
            the sources through the same lanes (refills) against it, 4 lanes
            against scipy's Dijkstra, the unit-weight anchor against
            msbfs_pipelined, and the sssp_teps points;
-  gnn_kernel      the GCN aggregation kernels (ell_spmm, spmm_residue)
-           against their plain versions taken in float64, within float32's
-           summation bound, on a seeded ogb_products-shaped batch's graph
-           (d = 16, timed, and 47), a row subset of it at d = 100, and the
-           R-MAT graph at d = 16 (hub rows: long residue tails);
+  gnn_kernel      the GCN aggregation kernels: ell_spmm bit-equal to its
+           float32 plain version, both within float32's summation bound of
+           their plain versions taken in float64, on a seeded
+           ogb_products-shaped batch's graph and its transpose (d = 16,
+           timed, and 47), a row subset of it at d = 100, and the R-MAT
+           graph at d = 16 (hub rows: long residue tails);
   gcn_layers      where one gcn-cora training step at ogb_products spends
            its time (data, CSR + ELL build, forward, backward, optimizer),
            the kernels' launches and ms in a step, its host syncs;
@@ -710,10 +713,11 @@ def run_batched_path(g, args, serial_res):
 
 
 def relax_cost(n, lanes, slots, finite, rows):
-    # reads: starts + deg, one weight per live slot, the neighbour id of
-    # each of the ``finite`` live slots with a finite weight, and each
-    # distinct lane row those gather, once; writes: acc
-    nbytes = 8 * n + 4 * (slots + finite) + 4 * lanes * rows + 4 * n * lanes
+    # reads: row_ptr, one weight per live slot, the neighbour id of each
+    # of the ``finite`` live slots with a finite weight, and each distinct
+    # lane row those gather, once; writes: acc
+    nbytes = (4 * (n + 1) + 4 * (slots + finite) + 4 * lanes * rows
+              + 4 * n * lanes)
     return bound_ms(nbytes, 2 * finite * lanes)
 
 
@@ -725,6 +729,12 @@ def fallback_cost(n, lanes, slots, finite, rows, residue_rows):
     nbytes = (4 * (n + 1) + 4 * (slots + finite) + 4 * lanes * rows
               + 8 * residue_rows * lanes)
     return bound_ms(nbytes, 2 * finite * lanes)
+
+
+def relax_plain(row_ptr, col_idx, w, vals, max_pos):
+    """semiring_relax_ref on the kernel wrapper's arguments."""
+    return semiring_relax_ref(row_ptr[:-1], row_ptr[1:] - row_ptr[:-1],
+                              col_idx, w, vals, max_pos)
 
 
 class RelaxKernelCheck:
@@ -754,13 +764,13 @@ class RelaxKernelCheck:
         """(semiring_relax args, relax_fallback args on base ``acc``, which
         the fold updates in place)."""
         wg = self.wg
-        return ((wg.row_ptr[:-1], wg.deg, wg.col_idx, w, vals, MAX_POS),
+        return ((wg.row_ptr, wg.col_idx, w, vals, MAX_POS),
                 (wg.row_ptr, wg.src_idx, wg.col_idx, w, vals, acc, MAX_POS))
 
     def relax(self, label, w, vals):
         ra, _ = self.args(w, vals)
         acc = semiring_relax_cuda(*ra)
-        self._agree("semiring_relax", label, acc, semiring_relax_ref(*ra))
+        self._agree("semiring_relax", label, acc, relax_plain(*ra))
         _, fa = self.args(w, vals, acc)
         plain = relax_fallback_ref(*fa[:5], acc.clone(), MAX_POS)
         self._agree("relax_fallback", label, relax_fallback_cuda(*fa), plain)
@@ -769,6 +779,43 @@ class RelaxKernelCheck:
     def gathered_rows(self, slots):
         return int(torch.unique(self.wg.col_idx[slots]).numel())
 
+    def time_probe(self, label, ra, reps, flush):
+        """semiring_relax's times on one input (``relax``'s args), its
+        bound, and its library yardstick: one scatter_reduce(amin) over the
+        probe slots' candidates, built outside the timing, into +inf."""
+        wg = self.wg
+        w, vals = ra[2], ra[3]
+        lanes = vals.shape[1]
+        probe = int(self.probe_slots.sum())
+        fin = self.probe_slots & torch.isfinite(w)
+        cost = relax_cost(wg.n, lanes, probe, int(fin.sum()),
+                          self.gathered_rows(fin))
+        slots = torch.nonzero(self.probe_slots).squeeze(1)
+        cand = vals[wg.col_idx[slots].long()] + w[slots][:, None]
+        index = wg.src_idx[slots].long()[:, None].expand(-1, lanes)
+        empty = torch.full((wg.n, lanes), INF, device=wg.device)
+
+        def library():
+            return torch.scatter_reduce(empty, 0, index, cand, "amin")
+
+        check(torch.equal(library(), semiring_relax_cuda(*ra)),
+              f"the probe's library yardstick computes another function on "
+              f"{label}")
+        active = torch.isfinite(vals).any(dim=1)
+        out = dict(ms=time_ms(lambda: semiring_relax_cuda(*ra), reps, flush),
+                   plain_ms=time_ms(lambda: relax_plain(*ra), reps, flush),
+                   library_ms=time_ms(library, reps, flush),
+                   bound_ms=cost[0], bound_by=cost[1],
+                   timed_input=dict(case=label, vertices=wg.n,
+                                    probe_slots=probe,
+                                    finite_probe_slots=int(fin.sum()),
+                                    live_probe_slots=int(
+                                        (fin & active[wg.col_idx.long()])
+                                        .sum()),
+                                    active_rows=int(active.sum())))
+        del cand, index, slots, empty
+        return out
+
     def time_fold(self, label, ra, fa, reps, flush):
         """relax_fallback's times on one input (``relax``'s args), its
         bound, and its library yardstick: one scatter_reduce(amin) over the
@@ -776,7 +823,7 @@ class RelaxKernelCheck:
         probe's result. fa's base is folded first: a second fold finds
         nothing lower, so every timed run does the same work."""
         wg = self.wg
-        w, vals = ra[3], ra[4]
+        w, vals = ra[2], ra[3]
         lanes = vals.shape[1]
         relax_fallback_cuda(*fa)
         acc = semiring_relax_cuda(*ra)
@@ -835,32 +882,8 @@ def relax_kernel_random(chk, dev, reps, flush, delta):
         torch.cuda.synchronize()
         if lanes != SSSP_LANES:
             continue
-        probe = int(chk.probe_slots.sum())
-        probe_fin = chk.probe_slots & torch.isfinite(ra[3])
-        cost = relax_cost(n, lanes, probe, int(probe_fin.sum()),
-                          chk.gathered_rows(probe_fin))
-        # the probe's library yardstick, by the fold's convention: one
-        # scatter_reduce(amin) over the probe slots' candidates, built
-        # outside the timing, into +inf
-        slots = torch.nonzero(chk.probe_slots).squeeze(1)
-        cand = vals[wg.col_idx[slots].long()] + ra[3][slots][:, None]
-        index = wg.src_idx[slots].long()[:, None].expand(-1, lanes)
-        empty = torch.full((n, lanes), INF, device=dev)
-
-        def library():
-            return torch.scatter_reduce(empty, 0, index, cand, "amin")
-
-        check(torch.equal(library(), semiring_relax_cuda(*ra)),
-              "the probe's library yardstick computes another function")
-        chk.rec["semiring_relax"].update(
-            ms=time_ms(lambda: semiring_relax_cuda(*ra), reps, flush),
-            plain_ms=time_ms(lambda: semiring_relax_ref(*ra), reps, flush),
-            bound_ms=cost[0], bound_by=cost[1],
-            library_ms=time_ms(library, reps, flush),
-            timed_input=dict(case=f"random L={lanes} heavy", vertices=n,
-                             probe_slots=probe,
-                             finite_probe_slots=int(probe_fin.sum())))
-        del cand, index, slots, empty
+        chk.rec["semiring_relax"].update(chk.time_probe(
+            f"random L={lanes} heavy", ra, reps, flush))
         # every row has a finite lane and 97 % of the weights are finite
         # here, so nearly every residue slot gathers; the sweep's light and
         # heavy inputs (sssp_layers) show the fold on the engine's own data
@@ -904,6 +927,9 @@ def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
             if len(rows) >= SWEEP_TIMED_ROW and phase not in sweep:
                 sweep[phase] = chk.time_fold(f"sweep step {step} {phase}",
                                              ra, fa, reps, flush)
+                chk.rec["semiring_relax"].setdefault("sweep_inputs", {})[
+                    phase] = chk.time_probe(f"sweep step {step} {phase}",
+                                            ra, reps, flush)
         row["relax_ms"] = relax_ms
         row["outside_relax_ms"] = row["step_ms"] - relax_ms
         rows.append(row)
@@ -914,6 +940,10 @@ def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
             json.dump(rows, f)
     relaxes = sum(("light_probe_ms" in r) + ("heavy_probe_ms" in r)
                   for r in rows)
+
+    def median_of(key):
+        vals = [r[key] for r in rows if key in r]
+        return statistics.median(vals) if vals else None
     emit("sssp_layers", sources=len(roots), lanes=SSSP_LANES, delta=delta,
          steps=len(rows), relaxes=relaxes,
          light_steps=sum("light_probe_ms" in r for r in rows),
@@ -924,6 +954,10 @@ def sssp_layers(wg, roots, chk, reps, flush, delta, out_dir):
              "heavy_probe_ms", 0) for r in rows),
          fold_ms_total=sum(r.get("light_fold_ms", 0) + r.get(
              "heavy_fold_ms", 0) for r in rows),
+         probe_ms_median={p: median_of(f"{p}_probe_ms")
+                          for p in ("light", "heavy")},
+         fold_ms_median={p: median_of(f"{p}_fold_ms")
+                         for p in ("light", "heavy")},
          outside_relax_ms_total=sum(r["outside_relax_ms"] for r in rows),
          syncs_per_step=sorted(set(r["syncs"] for r in rows)),
          rows_every_10th=rows[::10])
@@ -1060,13 +1094,16 @@ def library_csrs(g, neigh, valid, k_max, n_src):
 
 
 class GnnKernelCheck:
-    """ell_spmm and spmm_residue against their plain versions taken in
-    float64, within float32's summation bound; keeps the cases, the largest
+    """ell_spmm against its plain version in float32 (the same bits: both
+    sum each row in slot order) and spmm_residue against its plain version
+    taken in float64, within float32's summation bound (ell_spmm's float64
+    bound ratio is kept beside its check); keeps the cases, the largest
     error and ratio to the bound, and the times of each timed input."""
 
     def __init__(self):
         self.rec = {name: dict(cases=0, max_abs_err=0.0, max_bound_ratio=0.0)
                     for name in GNN_KERNELS}
+        self.rec["ell_spmm"].update(bit_equal_f32=True, max_abs_err_f64=0.0)
         self.rows = []
 
     def _agree(self, name, label, got, want, abs_sum, deg):
@@ -1077,8 +1114,8 @@ class GnnKernelCheck:
                             f"{label} (ratio {ratio})")
         r = self.rec[name]
         r["cases"] += 1
-        r["max_abs_err"] = max(r["max_abs_err"],
-                               float(err.max()) if err.numel() else 0.0)
+        key = "max_abs_err_f64" if name == "ell_spmm" else "max_abs_err"
+        r[key] = max(r[key], float(err.max()) if err.numel() else 0.0)
         r["max_bound_ratio"] = max(r["max_bound_ratio"], ratio)
         return ratio
 
@@ -1090,6 +1127,13 @@ class GnnKernelCheck:
         y = ell_spmm_cuda(neigh, valid, x)
         check(torch.equal(ell_spmm_cuda(neigh, valid, x), y),
               f"ell_spmm is not deterministic on {label}")
+        plain32 = ell_spmm_ref(neigh, valid, x)
+        check(torch.equal(y.view(torch.int32), plain32.view(torch.int32)),
+              f"ell_spmm differs from its float32 plain version on {label}")
+        self.rec["ell_spmm"]["max_abs_err"] = max(
+            self.rec["ell_spmm"]["max_abs_err"],
+            float((y - plain32).abs().max()) if y.numel() else 0.0)
+        del plain32
         x64 = x.double()
         slab = ell_spmm_ref(neigh, valid, x64)
         slab_abs = ell_spmm_ref(neigh, valid, x64.abs())
@@ -1159,9 +1203,11 @@ class GnnKernelCheck:
 
 def gnn_kernel(chk, g_rmat, dev, reps, flush):
     """Both kernels on a seeded ogb_products-shaped batch's aggregation
-    graph at d = 16 (the kernels line's timed input) and 47, a row subset
-    of it at d = 100 against all its source rows, and the scale-20 R-MAT
-    graph at d = 16, whose hubs give spmm_residue long tails."""
+    graph and its transpose (the GCN step's four shapes: forward and
+    transposed graph at d = 16, the kernels line's timed input, and 47), a
+    row subset of the forward graph at d = 100 against all its source rows,
+    and the scale-20 R-MAT graph at d = 16, whose hubs give spmm_residue
+    long tails."""
     arch = get_arch("gcn-cora")
     shape = arch.shape("ogb_products")
     gb = gnn_batch(arch, shape, 0, seed=SEED + 2, device=dev)
@@ -1173,6 +1219,8 @@ def gnn_kernel(chk, g_rmat, dev, reps, flush):
         x = torch.randn((n, d), generator=gen, device=dev)
         chk.run(f"ogb_products fwd d={d}", adj.fwd, *adj.fwd_ell, x,
                 adj.k_max, reps, flush, timed=d == 16)
+        chk.run(f"ogb_products bwd d={d}", adj.bwd, *adj.bwd_ell, x,
+                adj.k_max, reps, flush)
     rows = min(1 << 18, n)
     ends = int(adj.fwd.row_ptr[rows])
     sub = CSRGraph(adj.fwd.row_ptr[:rows + 1], adj.fwd.col_idx[:ends],
@@ -1426,7 +1474,9 @@ def main(argv=None) -> int:
             r, count = gchk.rec[name], gcn_launches[name]
             per = dict(launches_per_step=count / GCN_STEPS,
                        max_bound_ratio=r["max_bound_ratio"],
-                       inputs=r["inputs"])
+                       inputs=r["inputs"],
+                       **{k: r[k] for k in ("bit_equal_f32", "max_abs_err_f64")
+                          if k in r})
         elif name in SSSP_KERNELS:
             r, count = rchk.rec[name], sssp_launches[name]
             per = dict(launches_per_step=count / sssp_steps)

@@ -23,29 +23,32 @@ def _launcher():
     global _entry
     if _entry is None:
         fn = common.load_library().semiring_relax_launch
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
-                       _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
+                       _I, _P]
         fn.restype = _I
         _entry = fn
     return _entry
 
 
-def semiring_relax_cuda(starts: torch.Tensor, deg: torch.Tensor,
-                        col_idx: torch.Tensor, weights: torch.Tensor,
-                        vals: torch.Tensor, max_pos: int = 8) -> torch.Tensor:
-    """Launch the relax. starts/deg are int32[n], col_idx int32[m], weights
-    float32[m], vals float32[nf, L] (or float32[nf] as L = 1, returned
-    flat) with nf >= n, all contiguous on one CUDA device; the kernel maps a
-    thread or a warp to a vertex as L asks. Raises on anything else."""
+def semiring_relax_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                        weights: torch.Tensor, vals: torch.Tensor,
+                        max_pos: int = 8) -> torch.Tensor:
+    """Launch the relax. row_ptr is int32[n + 1] (row v's slots start at
+    row_ptr[v], and it has row_ptr[v + 1] - row_ptr[v] of them), col_idx
+    int32[m], weights float32[m], vals float32[nf, L] (or float32[nf] as
+    L = 1, returned flat) with nf >= n, all contiguous on one CUDA device;
+    the kernel maps a thread or a warp to vertices as L asks. Raises on
+    anything else."""
     flat = vals.dim() == 1
     v2 = vals[:, None] if flat else vals
     if v2.dim() != 2:
         raise ValueError("vals must be 1-D or 2-D [nf, L]")
-    n = starts.shape[0]
+    if row_ptr.dim() != 1 or row_ptr.shape[0] < 1:
+        raise ValueError("row_ptr must be 1-D with n + 1 >= 1 entries")
+    n = row_ptr.shape[0] - 1
     nf, lanes = v2.shape
-    dev = starts.device
-    common.check_cuda_tensor("starts", starts, n, dev)
-    common.check_cuda_tensor("deg", deg, n, dev)
+    dev = row_ptr.device
+    common.check_cuda_tensor("row_ptr", row_ptr, n + 1, dev)
     common.check_cuda_tensor("col_idx", col_idx, device=dev)
     m = col_idx.numel()
     common.check_cuda_tensor("weights", weights, m, dev, dtype=torch.float32)
@@ -59,10 +62,9 @@ def semiring_relax_cuda(starts: torch.Tensor, deg: torch.Tensor,
     elif n and lanes:
         launch = _launcher()
         with torch.cuda.device(dev):
-            err = launch(starts.data_ptr(), deg.data_ptr(),
-                         col_idx.data_ptr(), weights.data_ptr(),
-                         v2.data_ptr(), acc.data_ptr(), n, nf, lanes, m,
-                         int(max_pos), common.sm_count(dev),
+            err = launch(row_ptr.data_ptr(), col_idx.data_ptr(),
+                         weights.data_ptr(), v2.data_ptr(), acc.data_ptr(), n,
+                         nf, lanes, m, int(max_pos), common.sm_count(dev),
                          torch.cuda.current_stream(dev).cuda_stream)
         common.check_launch("semiring_relax", err)
         common.LAUNCHES["semiring_relax"] += 1

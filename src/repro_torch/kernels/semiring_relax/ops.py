@@ -18,12 +18,9 @@ from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref
 def semiring_relax(row_ptr: torch.Tensor, col_idx: torch.Tensor,
                    weights: torch.Tensor, vals: torch.Tensor,
                    max_pos: int = 8) -> torch.Tensor:
-    starts = row_ptr[:-1]
-    deg = row_ptr[1:] - row_ptr[:-1]
     if col_idx.device.type == "cuda":
-        return semiring_relax_cuda(starts, deg, col_idx, weights, vals,
-                                   max_pos)
+        return semiring_relax_cuda(row_ptr, col_idx, weights, vals, max_pos)
     if col_idx.device.type == "cpu":
-        return semiring_relax_ref(starts, deg, col_idx, weights, vals,
-                                  max_pos)
+        return semiring_relax_ref(row_ptr[:-1], row_ptr[1:] - row_ptr[:-1],
+                                  col_idx, weights, vals, max_pos)
     raise ValueError(f"no semiring_relax for device {col_idx.device}")

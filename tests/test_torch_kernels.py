@@ -11,6 +11,8 @@ a GPU and no JAX:
   PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py -k cuda
 """
 import importlib
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -214,7 +216,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                              words)
     w, vals = torch.zeros(4), torch.zeros((4, 2))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        semiring_relax_cuda(x, x, x, w, vals, 8)
+        semiring_relax_cuda(torch.zeros(5, dtype=torch.int32), x, w, vals, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         relax_fallback_cuda(torch.zeros(5, dtype=torch.int32), x, x, w, vals,
                             vals, 8)
@@ -335,21 +337,27 @@ def test_msbfs_pipelined_on_gpu_matches_cpu(cuda_device, mode):
         assert common.LAUNCHES["msbfs_probe"] > 0
 
 
-def relax_graph(device, max_pos=8, n=3000, seed=0):
+INF_SHARE = {"fifth_inf": 0.2, "light": 0.97, "all_inf": 1.0}
+
+
+def relax_graph(device, max_pos=8, weights="fifth_inf", n=3000, seed=0):
     """A directed weighted CSR with every kind of row the relax kernels
     meet: row 0 a hub over every vertex (one very long row), row 1 exactly
-    ``max_pos`` neighbours, row 2 empty, the rest 0-40 random neighbours;
-    about a fifth of the weights +inf (excluded edges)."""
+    ``max_pos`` neighbours, row 2 empty, row 3 ``max_pos + 1``, the rest
+    0-40 random neighbours; a share of the weights +inf (excluded edges)
+    by the engine's masks: about a fifth, all but about 3 % (the light
+    relax), or all."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 41, n)
-    deg[:3] = (n, max_pos, 0)
+    deg[:4] = (n, max_pos, 0, max_pos + 1)
     src = np.repeat(np.arange(n), deg)
     dst = np.concatenate([np.arange(n), rng.integers(0, n, deg[1:].sum())])
     g = from_weighted_edges(src, dst, rng.uniform(0, 1, src.size), n,
                             symmetrize=False, drop_self_loops=False,
                             device=device)
     w = g.weights.clone()
-    w[torch.from_numpy(rng.random(g.m) < 0.2).to(device)] = float("inf")
+    w[torch.from_numpy(rng.random(g.m) < INF_SHARE[weights]).to(device)] = (
+        float("inf"))
     return g, w
 
 
@@ -361,22 +369,28 @@ def relax_values(n_rows, lanes, seed, device):
     return torch.from_numpy(vals).to(device)
 
 
-@pytest.mark.parametrize("lanes", [1, 3, 8, 32, 33])
-@pytest.mark.parametrize("max_pos", [1, 8])
-def test_relax_kernels_cuda_match_plain(cuda_device, lanes, max_pos):
-    """semiring_relax (a thread per vertex at L <= 8, a warp per vertex
-    above, and the flat form at L = 1) and relax_fallback (in place),
-    bit-equal to their plain versions, with lane values of more rows than
-    the graph."""
-    g, w = relax_graph(cuda_device, max_pos)
+@pytest.mark.parametrize("weights", list(INF_SHARE))
+@pytest.mark.parametrize("lanes", [1, 3, 8, 32, 33, 64])
+@pytest.mark.parametrize("max_pos", [1, 8, 9, 40])
+def test_relax_kernels_cuda_match_plain(cuda_device, lanes, max_pos,
+                                        weights):
+    """semiring_relax (a thread per vertex at L <= 8, a warp's probe list
+    over 32 vertices above, and the flat form at L = 1) and relax_fallback
+    (in place), bit-equal to their plain versions under each weight mask,
+    with lane values of more rows than the graph; two launches of
+    semiring_relax give the same bits."""
+    g, w = relax_graph(cuda_device, max_pos, weights)
     vals = relax_values(g.n + 37, lanes, lanes + max_pos, cuda_device)
-    starts, deg = g.row_ptr[:-1], g.deg
     before = dict(common.LAUNCHES)
-    want = semiring_relax_ref(starts, deg, g.col_idx, w, vals, max_pos)
-    got = semiring_relax_cuda(starts, deg, g.col_idx, w, vals, max_pos)
+    want = semiring_relax_ref(g.row_ptr[:-1], g.deg, g.col_idx, w, vals,
+                              max_pos)
+    got = semiring_relax_cuda(g.row_ptr, g.col_idx, w, vals, max_pos)
+    again = semiring_relax_cuda(g.row_ptr, g.col_idx, w, vals, max_pos)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    assert bool(torch.isinf(got).all()) == (weights == "all_inf")
     if lanes == 1:
-        flat = semiring_relax_cuda(starts, deg, g.col_idx, w,
+        flat = semiring_relax_cuda(g.row_ptr, g.col_idx, w,
                                    vals[:, 0].contiguous(), max_pos)
         assert flat.shape == (g.n,) and torch.equal(flat, want[:, 0])
     args = (g.row_ptr, g.src_idx, g.col_idx, w, vals)
@@ -386,10 +400,26 @@ def test_relax_kernels_cuda_match_plain(cuda_device, lanes, max_pos):
     assert torch.equal(base.view(torch.int32), folded.view(torch.int32))
     torch.cuda.synchronize()
     assert common.LAUNCHES["semiring_relax"] == (
-        before["semiring_relax"] + 1 + (lanes == 1))
+        before["semiring_relax"] + 2 + (lanes == 1))
     assert common.LAUNCHES["relax_fallback"] == before["relax_fallback"] + 1
-    # the hub row's residue spans many segments and merges by atomics
-    assert int(g.deg[0]) > 100 * max_pos
+    # the hub row's residue spans many of the fold's 256-slot segments and
+    # merges by atomics
+    assert int(g.deg[0]) - max_pos > 10 * 256
+
+
+def test_relax_bound_counts_row_ptr():
+    """chip_smoke.py's bound for semiring_relax counts what the kernel
+    reads and writes once: row_ptr (n + 1 int32), a weight per probe slot,
+    an id per finite one, each gathered lane row, and acc."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n, lanes, slots, finite, rows = 1000, 32, 5000, 300, 200
+    nbytes = (4 * (n + 1) + 4 * (slots + finite) + 4 * lanes * rows
+              + 4 * n * lanes)
+    assert smoke.relax_cost(n, lanes, slots, finite, rows) == (
+        smoke.bound_ms(nbytes, 2 * finite * lanes))
 
 
 @pytest.mark.parametrize("lanes", [1, 32, 33])
@@ -414,8 +444,7 @@ def test_relax_fallback_cuda_sparse_live_slots(cuda_device, lanes, max_pos):
     vals = relax_values(n + 5, lanes, lanes, cuda_device)
     vals[torch.from_numpy(rng.random(n + 5) < 0.9).to(cuda_device)] = float(
         "inf")
-    base = semiring_relax_cuda(g.row_ptr[:-1], g.deg, g.col_idx, w, vals,
-                               max_pos)
+    base = semiring_relax_cuda(g.row_ptr, g.col_idx, w, vals, max_pos)
     args = (g.row_ptr, g.src_idx, g.col_idx, w, vals)
     want = relax_fallback_ref(*args, base.clone(), max_pos)
     got = relax_fallback_cuda(*args, base.clone(), max_pos)
@@ -485,6 +514,30 @@ def test_ell_kernels_cuda_match_plain(cuda_device, d, k_max):
     torch.cuda.synchronize()
     assert common.LAUNCHES["ell_spmm"] == before["ell_spmm"] + 2
     assert common.LAUNCHES["spmm_residue"] == before["spmm_residue"] + 2
+
+
+@pytest.mark.parametrize("d", [1, 4, 16, 47, 64, 65, 100, 130])
+@pytest.mark.parametrize("k_max", [1, 4, 16, 33])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ell_spmm_cuda_bit_equal_plain(cuda_device, d, k_max, aligned):
+    """ell_spmm against its plain version run in float32 on the card: the
+    same bits (both sum each row in slot order), with more feature rows than
+    graph rows; an x whose data does not start on 16 bytes takes the
+    kernel's scalar loads. Two launches give the same bits."""
+    g = rmat_graph(10, 16, seed=d + k_max, device=cuda_device)
+    rng = np.random.default_rng(d * k_max + aligned)
+    n_src = g.n + 37
+    buf = torch.from_numpy(rng.standard_normal(n_src * d + 1).astype(
+        np.float32)).to(cuda_device)
+    x = buf[:-1].view(n_src, d) if aligned else buf[1:].view(n_src, d)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    neigh, valid = ell_pad(g, k_max)
+    y = ell_spmm_cuda(neigh, valid, x)
+    want = ell_spmm_ref(neigh, valid, x)
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ell_spmm_cuda(neigh, valid, x).view(torch.int32),
+                       y.view(torch.int32))
+    assert bool((g.deg == 0).any()) and bool((g.deg > k_max).any())
 
 
 def segment_graph(k_max, device):

@@ -164,6 +164,35 @@ def test_semiring_relax_local_block_matches_pallas():
     assert_bits_equal(got, want)
 
 
+@pytest.mark.parametrize("weights", ["all_inf", "light", "fifth_inf"])
+@pytest.mark.parametrize("max_pos", [4, 9])
+def test_semiring_relax_wrapper_row_ptr_matches_pallas(weights, max_pos):
+    """The wrapper the engine calls passes row_ptr to the kernel, which
+    reads each row's start and degree from it; on the CPU the wrapper
+    equals the Pallas kernel given starts and degrees: rows of degree 0,
+    max_pos and deeper, neighbour ids over more rows than the block, and
+    all-+inf, light (3 % finite) and 80 % finite weights."""
+    rng = np.random.default_rng(max_pos)
+    n, nf, lanes = 150, 190, 5
+    deg = rng.integers(0, 3 * max_pos, n).astype(np.int32)
+    deg[:3] = (0, max_pos, 2 * max_pos + 5)
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col = rng.integers(0, nf, row_ptr[-1]).astype(np.int32)
+    w = rng.uniform(0, 1, col.size).astype(np.float32)
+    finite = {"all_inf": 0.0, "light": 0.03, "fifth_inf": 0.8}[weights]
+    w[rng.random(w.size) >= finite] = np.inf
+    vals = rng.uniform(0, 8, (nf, lanes)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.35] = np.inf
+    want = semiring_relax_pallas(jnp.asarray(row_ptr[:-1]), jnp.asarray(deg),
+                                 jnp.asarray(col), jnp.asarray(w),
+                                 jnp.asarray(vals), max_pos=max_pos,
+                                 interpret=True)
+    got = semiring_relax(t(row_ptr), t(col), t(w), t(vals), max_pos)
+    assert got.shape == (n, lanes)
+    assert_bits_equal(got, want)
+    assert bool(torch.isinf(got).all()) == (weights == "all_inf")
+
+
 @pytest.mark.parametrize("max_pos", [0, 2, 8])
 def test_relax_fallback_plain_matches_reference(max_pos):
     """The residue fold against the reference's ``_relax_fallback``: with
