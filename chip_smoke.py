@@ -15,16 +15,17 @@ phase prints one JSON line:
   kernel   each kernel against its plain PyTorch version on the card, on a
            seeded random visited/frontier split and on every layer state of
            one hybrid BFS: outputs must be bit-equal; times from CUDA events;
-  layers   where one hybrid BFS spends its time, layer by layer;
+  layers   where one hybrid BFS spends its time, layer by layer (the
+           top-down scan timed on each top-down layer beside its bound);
   main     the serial Graph500 harness (hybrid, all roots) through
            run_graph500, with the launch counts of that run alone, then the
            validator, the numpy oracle and the cross-mode checks;
   msbfs_kernel    the multi-source kernels (msbfs_probe, segment_or)
-           against their plain versions on seeded random lane words (W = 2
-           and 8) and on every layer state of one batched sweep;
+           against their plain versions on seeded random lane words (W = 2,
+           8 and 16) and on every layer state of one batched sweep;
   batched_layers  where that sweep (one lane per root) spends its time,
-           layer by layer, with the host syncs of a step, then the parent
-           derivation;
+           layer by layer, with the host syncs of a step and segment_or's
+           two forms each beside its bound, then the parent derivation;
   batched  the batched Graph500 harness (run_graph500 batched=True, 64
            lanes) with the launch counts of that run alone, then every
            lane against the serial bfs, traces, validator and oracle, and
@@ -251,12 +252,25 @@ def probe_cost(n, n_unvisited, probes, nw):
     return bound_ms(nbytes, ops)
 
 
-def scan_cost(n, m, active_edges, nw):
-    # reads: src_idx for every slot, col_idx for slots whose source is in
-    # the frontier, both bitmaps; writes: best
-    nbytes = 4 * m + 4 * active_edges + 8 * nw + 4 * n
-    ops = 4 * m + 6 * active_edges
+def scan_cost(n, active_edges, frontier_rows, nw):
+    # what the work needs, whatever implements it: reads both bitmaps, the
+    # frontier rows' bounds and their col_idx slots; writes best
+    nbytes = 8 * nw + 8 * frontier_rows + 4 * active_edges + 4 * n
+    ops = n + 6 * active_edges
     return bound_ms(nbytes, ops)
+
+
+def scan_library(g, f, v):
+    """The top-down scan's library yardstick on frontier ``f`` and visited
+    ``v``: one scatter_reduce(amin) into an all-n best over the candidates
+    of the frontier rows' slots with an unvisited destination, built
+    outside the timing."""
+    n = g.n
+    live = f[g.src_idx.long()] & ~v[g.col_idx.long()]
+    index = g.col_idx[live].long()
+    cand = g.src_idx[live]
+    init = torch.full((n,), n, dtype=torch.int32, device=g.device)
+    return lambda: torch.scatter_reduce(init, 0, index, cand, "amin")
 
 
 def max_abs_err(pairs) -> int:
@@ -289,11 +303,14 @@ def compare_kernels(g, out, dev, reps, flush):
         fw, vw = bitmap.pack(f), bitmap.pack(v)
         unv = (~v).to(torch.int32)
         probe_args = (starts, deg, unv, p, g.col_idx, fw, MAX_POS)
-        scan_args = (g.src_idx, g.col_idx, fw, vw, n)
+        # the kernel walks the frontier rows by row_ptr, the plain version
+        # every slot by src_idx
+        scan_args = (g.row_ptr, g.col_idx, fw, vw, n)
+        plain_scan_args = (g.src_idx, g.col_idx, fw, vw, n)
         k_probe = bottom_up_probe_cuda(*probe_args)
         r_probe = bottom_up_probe_ref(*probe_args)
         k_scan = topdown_scan_cuda(*scan_args)
-        r_scan = topdown_best_ref(*scan_args)
+        r_scan = topdown_best_ref(*plain_scan_args)
         torch.cuda.synchronize()
         for name, k, r in (("bottom_up_probe", k_probe, r_probe),
                            ("topdown_scan", (k_scan,), (r_scan,))):
@@ -313,28 +330,39 @@ def compare_kernels(g, out, dev, reps, flush):
         probes = sum(int(live.sum()) for live, _, _ in probe_rounds(
             starts, deg, unv, g.col_idx, fw, MAX_POS))
         active = int(torch.where(f, deg, 0).sum())
-        for name, args, fn, plain, cost in (
-                ("bottom_up_probe", probe_args, bottom_up_probe_cuda,
-                 bottom_up_probe_ref,
+        rows = int(f.sum())
+        for name, args, plain_args, fn, plain, cost in (
+                ("bottom_up_probe", probe_args, probe_args,
+                 bottom_up_probe_cuda, bottom_up_probe_ref,
                  probe_cost(n, int(unv.sum()), probes, nw)),
-                ("topdown_scan", scan_args, topdown_scan_cuda,
-                 topdown_best_ref, scan_cost(n, m, active, nw))):
+                ("topdown_scan", scan_args, plain_scan_args,
+                 topdown_scan_cuda, topdown_best_ref,
+                 scan_cost(n, active, rows, nw))):
             rec[name].update(
                 ms=time_ms(lambda: fn(*args), reps, flush),
-                plain_ms=time_ms(lambda: plain(*args), reps, flush),
+                plain_ms=time_ms(lambda: plain(*plain_args), reps, flush),
                 bound_ms=cost[0], bound_by=cost[1])
+        library = scan_library(g, f, v)
+        check(torch.equal(library(), k_scan),
+              "the top-down scan's library yardstick computes another "
+              "function")
+        rec["topdown_scan"]["library_ms"] = time_ms(library, reps, flush)
+        del library
         rec["bottom_up_probe"]["timed_input"] = dict(
             case="random", unvisited=int(unv.sum()), probes=probes)
         rec["topdown_scan"]["timed_input"] = dict(
-            case="random", active_edges=active)
+            case="random", active_edges=active, frontier_rows=rows,
+            slots_of_graph=m)
     for name, r in rec.items():
         emit("kernel", name=name, bit_equal=True, **r)
     return rec
 
 
-def layer_breakdown(g, root, out, reps, flush):
+def layer_breakdown(g, root, out, reps, flush, scan_rec):
     """Time one hybrid BFS layer by layer: the counters' host sync, the
-    step the controller chose, and inside it the kernel and the fallback."""
+    step the controller chose, and inside it the kernel (with its bound)
+    and the fallback. The top-down layers' scan times and bounds also go
+    to ``scan_rec``."""
     n, deg = g.n, g.deg
     dirs = out.trace_dir.tolist()
     rows = []
@@ -353,8 +381,11 @@ def layer_breakdown(g, root, out, reps, flush):
             vw = bitmap.pack(v)
             row["step_ms"] = wall_ms(lambda: topdown_step(g, f, v, p), reps)
             row["kernel_ms"] = time_ms(
-                lambda: topdown_scan_cuda(g.src_idx, g.col_idx, fw, vw, n),
+                lambda: topdown_scan_cuda(g.row_ptr, g.col_idx, fw, vw, n),
                 reps, flush)
+            row["active_edges"] = int(torch.where(f, deg, 0).sum())
+            row["bound_ms"] = scan_cost(n, row["active_edges"], row["v_f"],
+                                        fw.numel())[0]
         else:
             unv = (~v).to(torch.int32)
             row["step_ms"] = wall_ms(
@@ -372,8 +403,16 @@ def layer_breakdown(g, root, out, reps, flush):
                 lambda: _fallback_scan(g, fw, rem, p, MAX_POS),
                 reps) if row["residue"] else 0.0
         rows.append(row)
+    td = [r for r in rows if r["dir"] == "TD"]
+    scan_rec["layers"] = dict(
+        root=root, layers=[r["layer"] for r in td],
+        ms=[r["kernel_ms"] for r in td], bound_ms=[r["bound_ms"] for r in td],
+        ms_total=sum(r["kernel_ms"] for r in td),
+        bound_ms_total=sum(r["bound_ms"] for r in td))
     emit("layers", root=root, rows=rows,
-         step_ms_total=sum(r["step_ms"] + r["counters_ms"] for r in rows))
+         step_ms_total=sum(r["step_ms"] + r["counters_ms"] for r in rows),
+         topdown_kernel_ms_total=scan_rec["layers"]["ms_total"],
+         topdown_bound_ms_total=scan_rec["layers"]["bound_ms_total"])
 
 
 def run_main_path(g, args):
@@ -506,10 +545,11 @@ class LaneKernelCheck:
 
 
 def lane_kernel_random(chk, dev, reps, flush):
-    """Both kernels on seeded random lane words at W = 2 (timed) and 8."""
+    """Both kernels on seeded random lane words at W = 2 (timed), 8 and
+    16 (the row-OR in two 8-word chunks)."""
     g = chk.g
     n, m = g.n, g.m
-    for w in (LANES // 32, 8):
+    for w in (LANES // 32, 8, 16):
         fro, vis = random_lanes(n, w, SEED + w, dev)
         need = ~vis
         all_lanes = torch.full((w,), -1, dtype=torch.int32, device=dev)
@@ -597,18 +637,25 @@ def batched_sweep(g, roots, chk, reps, flush):
         row["syncs"] = syncs_of(lambda: msbfs_engine_step(g, s))
         row["step_ms"] = wall_ms(lambda: msbfs_engine_step(g, s), reps)
         kernel_ms = 0.0
+        w = LANES // 32
         if bu.any():
             pa, fa = chk.bottomup(label, f, ~v & bu_sel)
             row["fallback_rows"] = int(fa[6].sum())
+            row["fallback_slots"] = int(torch.where(
+                fa[6] != 0, (g.deg - MAX_POS).clamp(min=0), 0).sum())
             row["probe_ms"] = time_ms(lambda: msbfs_probe_cuda(*pa), reps,
                                       flush)
             row["fallback_ms"] = time_ms(lambda: segment_or_rows_cuda(*fa),
                                          reps, flush)
+            row["fallback_bound_ms"] = row_or_cost(
+                n, w, row["fallback_slots"], True, True, n)[0]
             kernel_ms += row["probe_ms"] + row["fallback_ms"]
         if td.any():
             ta = chk.topdown(label, f, v, td_sel)
             row["topdown_ms"] = time_ms(lambda: segment_or_rows_cuda(*ta),
                                         reps, flush)
+            row["topdown_bound_ms"] = row_or_cost(n, w, g.m, False, False,
+                                                  n)[0]
             kernel_ms += row["topdown_ms"]
         row["kernel_ms"] = kernel_ms
         rows.append(row)
@@ -618,6 +665,14 @@ def batched_sweep(g, roots, chk, reps, flush):
 
 def batched_layers(g, roots, chk, reps, flush):
     rows, s = batched_sweep(g, roots, chk, reps, flush)
+    # segment_or's two forms over the sweep, each against its own bound
+    forms = {}
+    for form in ("topdown", "fallback"):
+        done = [r for r in rows if f"{form}_ms" in r]
+        forms[form] = dict(
+            layers=len(done), ms_total=sum(r[f"{form}_ms"] for r in done),
+            bound_ms_total=sum(r[f"{form}_bound_ms"] for r in done))
+    chk.rec["segment_or"]["forms"] = forms
     depth = msbfs_engine_result(g, s, derive_parents=False).depth
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -631,7 +686,7 @@ def batched_layers(g, roots, chk, reps, flush):
          layers=len(rows),
          step_ms_total=sum(r["step_ms"] for r in rows),
          kernel_ms_total=sum(r["kernel_ms"] for r in rows),
-         syncs_per_layer=[r["syncs"] for r in rows],
+         syncs_per_layer=[r["syncs"] for r in rows], segment_or_forms=forms,
          derive_parents_ms=derive_ms, derive_parents_peak_bytes=peak)
     return len(rows)
 
@@ -1436,7 +1491,8 @@ def main(argv=None) -> int:
     probe_root = int(sample_roots(g, 1, seed=SEED + 1)[0])
     states = bfs(g, probe_root, "hybrid")
     rec = compare_kernels(g, states, dev, args.reps, flush)
-    layer_breakdown(g, probe_root, states, max(args.reps // 4, 3), flush)
+    layer_breakdown(g, probe_root, states, max(args.reps // 4, 3), flush,
+                    rec["topdown_scan"])
     torch.cuda.reset_peak_memory_stats()
 
     res, launches = run_main_path(g, args)
@@ -1490,6 +1546,9 @@ def main(argv=None) -> int:
             # the batched harness runs the sweep twice (warm-up and timed)
             r, count = chk.rec[name], batched_launches[name]
             per = dict(launches_per_sweep_layer=count / (2 * layers))
+        for key in ("forms", "layers"):
+            if key in r:
+                per[key] = r[key]
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -6,7 +6,7 @@ destination keeps the minimum. The deterministic min-parent rule makes
 top-down, bottom-up and the oracle produce identical trees.
 
 ``topdown_step`` runs the fused ``topdown_scan`` kernel on the GPU (scan and
-scatter-min in one pass over the edges). ``topdown_ell_step`` and
+scatter-min over the frontier rows' slots only). ``topdown_ell_step`` and
 ``topdown_active_lanes`` are plain PyTorch, as their references are plain
 XLA.
 """
@@ -30,7 +30,7 @@ def topdown_step(g: CSRGraph, frontier: torch.Tensor, visited: torch.Tensor,
     Returns (new_frontier, visited, parent).
     """
     n = g.n
-    best = topdown_scan(g.src_idx, g.col_idx, bitmap.pack(frontier),
+    best = topdown_scan(g.row_ptr, g.col_idx, bitmap.pack(frontier),
                         bitmap.pack(visited), n)
     new = (best < n) & ~visited
     parent = torch.where(new, best, parent)

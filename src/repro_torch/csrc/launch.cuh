@@ -9,7 +9,10 @@ namespace repro_torch {
 // per block: enough to cover the items, and at most 8 blocks per SM (2048
 // threads of 256, an H100 SM's maximum), so that the loop, not the block
 // scheduler, walks a large input. `sms` is the SM count of the device the
-// launch goes to; the caller reads it.
+// launch goes to; the caller reads it. The cap holds only for kernels of
+// at most 32 registers a thread; bottom_up_probe.cu and msbfs_probe.cu
+// still use it (msbfs_probe at W >= 4 is above 32), every other kernel
+// uses resident_blocks.
 inline int grid_blocks(long long count, int threads, int sms) {
   const long long needed = (count + threads - 1) / threads;
   const long long cap = 8LL * (sms > 0 ? sms : 1);

@@ -42,7 +42,9 @@ from repro_torch.kernels.msbfs_probe.ref import msbfs_probe_ref
 from repro_torch.kernels.relax_fallback.kernel import relax_fallback_cuda
 from repro_torch.kernels.relax_fallback.ops import relax_fallback
 from repro_torch.kernels.relax_fallback.ref import relax_fallback_ref
-from repro_torch.kernels.segment_or.kernel import segment_or_rows_cuda
+from repro_torch.kernels.segment_or.kernel import (SEG as OR_SEG,
+                                                  segment_or_rows_cuda,
+                                                  segment_scratch)
 from repro_torch.kernels.segment_or.ops import segment_or_rows
 from repro_torch.kernels.segment_or.ref import segment_or_rows_ref
 from repro_torch.kernels.semiring_relax.kernel import semiring_relax_cuda
@@ -51,7 +53,8 @@ from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref
 from repro_torch.kernels.spmm_residue.kernel import (SEG, residue_scratch,
                                                      spmm_residue_cuda)
 from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref
-from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda
+from repro_torch.kernels.topdown_scan.kernel import (frontier_scratch,
+                                                    topdown_scan_cuda)
 from repro_torch.kernels.topdown_scan.ops import topdown_scan
 from repro_torch.kernels.topdown_scan.ref import (topdown_best_ref,
                                                   topdown_scan_ref)
@@ -160,7 +163,8 @@ def test_topdown_scan_plain_matches_pallas(ref, n, m, seed):
     np.testing.assert_array_equal(
         topdown_best_ref(g.src_idx, g.col_idx, fw, vw, g.n).numpy(), best)
     np.testing.assert_array_equal(
-        topdown_scan(g.src_idx, g.col_idx, fw, vw, g.n).numpy(), best)
+        topdown_scan(g.row_ptr, g.col_idx, fw, vw, g.n).numpy(),
+        best)
 
 
 @pytest.mark.parametrize("n,m,seed", [(300, 1200, 0), (1024, 8000, 1),
@@ -187,8 +191,8 @@ def test_cpu_path_launches_no_kernel():
     fw = bitmap.pack(torch.from_numpy(fro))
     bottom_up_probe(g.row_ptr, g.col_idx, fw, torch.from_numpy(~vis),
                     torch.full((g.n,), -1, dtype=torch.int32), 8)
-    topdown_scan(g.src_idx, g.col_idx, fw,
-                 bitmap.pack(torch.from_numpy(vis)), g.n)
+    topdown_scan(g.row_ptr, g.col_idx, fw, bitmap.pack(torch.from_numpy(vis)),
+                 g.n)
     fro_w, vis_w = lane_split(g.n, 2, 5)
     msbfs_probe(g.row_ptr, g.col_idx, fro_w, ~vis_w, 8)
     segment_or_rows(g.row_ptr, g.col_idx, fro_w, ~vis_w)
@@ -207,7 +211,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bottom_up_probe_cuda(x, x, x, x, x, x, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        topdown_scan_cuda(x, x, x, x, 4)
+        topdown_scan_cuda(torch.zeros(5, dtype=torch.int32), x, x, x, 4)
     words = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         msbfs_probe_cuda(x, x, words, x, words, 8)
@@ -268,12 +272,137 @@ def test_topdown_scan_cuda_matches_plain(cuda_device, seed):
     vis, fro = split(g.n, seed)
     fw = bitmap.pack(torch.from_numpy(fro).to(cuda_device))
     vw = bitmap.pack(torch.from_numpy(vis).to(cuda_device))
-    args = (g.src_idx, g.col_idx, fw, vw, g.n)
     before = common.LAUNCHES["topdown_scan"]
-    k = topdown_scan_cuda(*args)
+    k = topdown_scan_cuda(g.row_ptr, g.col_idx, fw, vw, g.n)
     torch.cuda.synchronize()
     assert common.LAUNCHES["topdown_scan"] == before + 1
-    assert torch.equal(k, topdown_best_ref(*args))
+    assert torch.equal(k, topdown_best_ref(g.src_idx, g.col_idx, fw, vw,
+                                           g.n))
+
+
+def split_row_graph(device, n=2000, seed=0, extra_ids=0):
+    """A CSR with every kind of row the row-OR and the top-down scan sort
+    their work by: a hub over several segments, rows of exactly OR_SEG and
+    OR_SEG + 1 slots and of 31, 32 and 33 (the bound of a warp's list),
+    short and empty rows; neighbour ids in [0, n + extra_ids)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 40, n)
+    deg[rng.random(n) < 0.2] = 0
+    deg[0] = 5 * OR_SEG + 7
+    for i, d in enumerate([OR_SEG, OR_SEG + 1, 31, 32, 33, 2 * OR_SEG, 7, 8,
+                           9]):
+        deg[3 + 11 * i] = d
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    col_idx = rng.integers(0, n + extra_ids, int(row_ptr[-1]))
+    return from_numpy_graph(row_ptr, col_idx, np.repeat(np.arange(n), deg),
+                            device)
+
+
+def segments_needed(deg, min_pos=0):
+    """The long-row segments of the row-OR, counted with numpy."""
+    cnt = np.maximum(np.asarray(deg) - min_pos, 0)
+    long = cnt[cnt > OR_SEG]
+    return int(np.sum(-(-long // OR_SEG)))
+
+
+@pytest.mark.parametrize("case", ["hub", "all_long", "just_over", "rmat"])
+@pytest.mark.parametrize("min_pos", [0, 8])
+def test_segment_scratch_bound(case, min_pos):
+    """The row-OR's segment list holds every long row's segments, however
+    the slots are spread over rows."""
+    if case == "rmat":
+        deg = rmat_graph(10, 16, seed=1, device="cpu").deg.numpy()
+    else:
+        d = {"hub": 40 * OR_SEG + 3, "all_long": 3 * OR_SEG,
+             "just_over": OR_SEG + 1}[case]
+        deg = np.full(1 if case == "hub" else 50, d)
+    segments, nbytes = segment_scratch(int(deg.sum()))
+    assert segments_needed(deg, min_pos) <= segments
+    assert nbytes == 8 + 8 * segments
+    assert segment_scratch(0) == (1, 16)
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 2 ** 20])
+def test_frontier_scratch_bytes(n):
+    """The top-down scan's list has one (vertex, row start, offset) entry
+    per frontier vertex at most, after its 8-byte counter."""
+    assert frontier_scratch(n) == 8 + 3 * 4 * n
+
+
+def edgeless_graph(device, n=70):
+    return from_numpy_graph(np.zeros(n + 1), np.zeros(0), np.zeros(0), device)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("form", ["topdown", "fallback", "sparse_active",
+                                  "edgeless"])
+def test_segment_or_cuda_split_rows(cuda_device, w, form):
+    """The row-OR, bit-equal to its plain version on rows the design sorts
+    into a warp's list, a warp's walk and segments: a hub over five
+    segments, rows of exactly one segment and one slot more, min_pos
+    above some rows' degrees, a frontier of more rows than the graph; and
+    on a graph with no edges."""
+    g = (edgeless_graph(cuda_device) if form == "edgeless"
+         else split_row_graph(cuda_device, seed=w))
+    fro, vis = lane_split(g.n + 37, w, w, cuda_device)
+    mask = ~vis[:g.n]
+    rng = np.random.default_rng(w)
+    sel = torch.from_numpy(rng.integers(0, 2 ** 32, w, dtype=np.uint32)
+                           .view(np.int32)).to(cuda_device)
+    base = lane_split(g.n, w, w + 1, cuda_device)[0]
+    active = torch.from_numpy((rng.random(g.n) < (
+        0.05 if form == "sparse_active" else 0.6)).astype(np.int32))
+    active[[0, 3, 14]] = 1  # the hub, the rows of OR_SEG and OR_SEG + 1
+    active = active.to(cuda_device)
+    call = {"topdown": (mask, sel, None, None, 0),
+            "fallback": (mask, None, base, active, 8),
+            "sparse_active": (mask, sel, base, active, 33),
+            "edgeless": (mask, sel, base, active, 0)}[form]
+    args = (g.row_ptr, g.col_idx, fro) + call
+    before = common.LAUNCHES["segment_or"]
+    got = segment_or_rows_cuda(*args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["segment_or"] == before + 1
+    assert torch.equal(got, segment_or_rows_ref(*args))
+
+
+@pytest.mark.parametrize("case", ["hub", "empty", "full", "padding_bits",
+                                  "ids_past_n", "random", "edgeless"])
+def test_topdown_scan_cuda_frontier_cases(cuda_device, case):
+    """The top-down scan, equal to its plain version on frontiers that
+    hold the largest row (split over many warps' chunks), nothing, every
+    vertex, set bits past n in the last word, and neighbour ids >= n
+    (skipped: the plain version runs on the slots that remain); and on a
+    graph with no edges."""
+    g = (edgeless_graph(cuda_device) if case == "edgeless"
+         else split_row_graph(cuda_device, seed=5,
+                              extra_ids=50 if case == "ids_past_n" else 0))
+    n = g.n
+    rng = np.random.default_rng(5)
+    vis = torch.from_numpy(rng.random(n) < 0.3).to(cuda_device)
+    fro = torch.from_numpy(rng.random(n) < 0.2).to(cuda_device) & ~vis
+    if case == "hub":
+        fro = torch.zeros_like(fro)
+        fro[int(torch.argmax(g.deg))] = True
+        vis = vis | fro
+    elif case == "empty":
+        fro = torch.zeros_like(fro)
+    elif case == "full":
+        fro, vis = torch.ones_like(fro), torch.zeros_like(vis)
+    fw, vw = bitmap.pack(fro), bitmap.pack(vis)
+    if case == "padding_bits":
+        assert n % 32
+        fw[-1] |= torch.tensor(-1 << (n % 32), dtype=torch.int32,
+                               device=cuda_device)
+    keep = g.col_idx < n
+    want = topdown_best_ref(g.src_idx[keep], g.col_idx[keep], fw, vw, n)
+    before = common.LAUNCHES["topdown_scan"]
+    got = topdown_scan_cuda(g.row_ptr, g.col_idx, fw, vw, n)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["topdown_scan"] == before + 1
+    assert torch.equal(got, want)
+    if case in ("empty", "edgeless"):
+        assert bool((got == n).all())
 
 
 @pytest.mark.parametrize("mode", ["hybrid", "topdown", "bottomup_simd",
