@@ -16,7 +16,8 @@ phase prints one JSON line:
            seeded random visited/frontier split and on every layer state of
            one hybrid BFS: outputs must be bit-equal; times from CUDA events;
   layers   where one hybrid BFS spends its time, layer by layer (the
-           top-down scan timed on each top-down layer beside its bound);
+           top-down scan timed on each top-down layer and the bottom-up
+           probe on each bottom-up layer, each beside its bound);
   main     the serial Graph500 harness (hybrid, all roots) through
            run_graph500, with the launch counts of that run alone, then the
            validator, the numpy oracle and the cross-mode checks;
@@ -24,8 +25,9 @@ phase prints one JSON line:
            against their plain versions on seeded random lane words (W = 2,
            8 and 16) and on every layer state of one batched sweep;
   batched_layers  where that sweep (one lane per root) spends its time,
-           layer by layer, with the host syncs of a step and segment_or's
-           two forms each beside its bound, then the parent derivation;
+           layer by layer, with the host syncs of a step, msbfs_probe and
+           segment_or's two forms each beside its bound, then the parent
+           derivation;
   batched  the batched Graph500 harness (run_graph500 batched=True, 64
            lanes) with the launch counts of that run alone, then every
            lane against the serial bfs, traces, validator and oracle, and
@@ -58,7 +60,8 @@ phase prints one JSON line:
            kernel a step), then one step on the kernels against the plain
            aggregation on the same card, and kill-and-resume at
            full_graph_sm (exact);
-  kernels  one entry per ported kernel (counts, errors, times, bounds).
+  kernels  one entry per ported kernel (counts, errors, times, bounds;
+           the in-path sums over the layers that ran it, where timed).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
 repository's src/.
@@ -244,12 +247,28 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def probe_cost(n, n_unvisited, probes, nw):
-    # reads: unvisited + parent for all, starts + deg for unvisited, one
-    # neighbour id per probe, the frontier words; writes: found + parent
-    nbytes = 8 * n + 8 * n_unvisited + 4 * probes + 4 * nw + 8 * n
+def probe_cost(n, n_unvisited, probes, hits, nw):
+    # what the work needs, whatever implements it: reads the unvisited
+    # flags (a byte each), the parents that pass through (all but the
+    # hits'), the unvisited rows' bounds (row_ptr, at most all of it), one
+    # neighbour id per probe and the frontier words those probes test (at
+    # most the bitmap); writes found + parent
+    nbytes = (n + 4 * (n - hits) + min(4 * (n + 1), 8 * n_unvisited)
+              + 4 * probes + 4 * min(nw, probes) + 8 * n)
     ops = 4 * n + 8 * probes
     return bound_ms(nbytes, ops)
+
+
+def probe_work(g, unv, parent, fw):
+    """B1's plain version on the kernel's inputs, and the work it needs:
+    (plain args, plain result, probes, hits). A probe is a neighbour
+    gather: every live round up to and including the hit."""
+    args = (g.row_ptr[:-1], g.deg, unv.to(torch.int32), parent, g.col_idx,
+            fw, MAX_POS)
+    probes = sum(int(live.sum()) for live, _, _ in probe_rounds(
+        *args[:3], g.col_idx, fw, MAX_POS))
+    want = bottom_up_probe_ref(*args)
+    return args, want, probes, int(want[0].sum())
 
 
 def scan_cost(n, active_edges, frontier_rows, nw):
@@ -291,7 +310,7 @@ def compare_kernels(g, out, dev, reps, flush):
     """Each kernel against its plain version: a seeded random split, then
     every layer state of ``out``. Returns the per-kernel record."""
     n, m = g.n, g.m
-    starts, deg = g.row_ptr[:-1], g.deg
+    deg = g.deg
     rng = np.random.default_rng(SEED)
     vis = torch.from_numpy(rng.random(n) < 0.4).to(dev)
     fro = torch.from_numpy(rng.random(n) < 0.25).to(dev) & ~vis
@@ -301,14 +320,15 @@ def compare_kernels(g, out, dev, reps, flush):
     rec = {name: dict(cases=0, max_abs_err=0) for name in SERIAL_KERNELS}
     for label, f, v, p in cases:
         fw, vw = bitmap.pack(f), bitmap.pack(v)
-        unv = (~v).to(torch.int32)
-        probe_args = (starts, deg, unv, p, g.col_idx, fw, MAX_POS)
-        # the kernel walks the frontier rows by row_ptr, the plain version
+        unv = ~v
+        # the kernels read row_ptr (and the probe the bool flags); the
+        # plain probe takes starts, degrees and int32 flags, the plain scan
         # every slot by src_idx
+        probe_args = (g.row_ptr, unv, p, g.col_idx, fw, MAX_POS)
+        plain_probe_args, r_probe, probes, hits = probe_work(g, unv, p, fw)
         scan_args = (g.row_ptr, g.col_idx, fw, vw, n)
         plain_scan_args = (g.src_idx, g.col_idx, fw, vw, n)
         k_probe = bottom_up_probe_cuda(*probe_args)
-        r_probe = bottom_up_probe_ref(*probe_args)
         k_scan = topdown_scan_cuda(*scan_args)
         r_scan = topdown_best_ref(*plain_scan_args)
         torch.cuda.synchronize()
@@ -326,15 +346,12 @@ def compare_kernels(g, out, dev, reps, flush):
         if label != "random":
             continue
         nw = fw.numel()
-        # neighbour gathers: every live round up to and including the hit
-        probes = sum(int(live.sum()) for live, _, _ in probe_rounds(
-            starts, deg, unv, g.col_idx, fw, MAX_POS))
         active = int(torch.where(f, deg, 0).sum())
         rows = int(f.sum())
         for name, args, plain_args, fn, plain, cost in (
-                ("bottom_up_probe", probe_args, probe_args,
+                ("bottom_up_probe", probe_args, plain_probe_args,
                  bottom_up_probe_cuda, bottom_up_probe_ref,
-                 probe_cost(n, int(unv.sum()), probes, nw)),
+                 probe_cost(n, int(unv.sum()), probes, hits, nw)),
                 ("topdown_scan", scan_args, plain_scan_args,
                  topdown_scan_cuda, topdown_best_ref,
                  scan_cost(n, active, rows, nw))):
@@ -349,7 +366,8 @@ def compare_kernels(g, out, dev, reps, flush):
         rec["topdown_scan"]["library_ms"] = time_ms(library, reps, flush)
         del library
         rec["bottom_up_probe"]["timed_input"] = dict(
-            case="random", unvisited=int(unv.sum()), probes=probes)
+            case="random", unvisited=int(unv.sum()), probes=probes,
+            hits=hits)
         rec["topdown_scan"]["timed_input"] = dict(
             case="random", active_edges=active, frontier_rows=rows,
             slots_of_graph=m)
@@ -358,11 +376,11 @@ def compare_kernels(g, out, dev, reps, flush):
     return rec
 
 
-def layer_breakdown(g, root, out, reps, flush, scan_rec):
+def layer_breakdown(g, root, out, reps, flush, rec):
     """Time one hybrid BFS layer by layer: the counters' host sync, the
     step the controller chose, and inside it the kernel (with its bound)
-    and the fallback. The top-down layers' scan times and bounds also go
-    to ``scan_rec``."""
+    and the fallback. Each kernel's layer times and bounds also go to its
+    record in ``rec`` (``layers``)."""
     n, deg = g.n, g.deg
     dirs = out.trace_dir.tolist()
     rows = []
@@ -387,32 +405,47 @@ def layer_breakdown(g, root, out, reps, flush, scan_rec):
             row["bound_ms"] = scan_cost(n, row["active_edges"], row["v_f"],
                                         fw.numel())[0]
         else:
-            unv = (~v).to(torch.int32)
+            unv = ~v
             row["step_ms"] = wall_ms(
                 lambda: bottomup_simd_step(g, f, v, p, MAX_POS), reps)
             row["kernel_ms"] = time_ms(
-                lambda: bottom_up_probe_cuda(g.row_ptr[:-1], deg, unv, p,
-                                             g.col_idx, fw, MAX_POS),
+                lambda: bottom_up_probe_cuda(g.row_ptr, unv, p, g.col_idx, fw,
+                                             MAX_POS),
                 reps, flush)
-            found, _ = bottom_up_probe_ref(g.row_ptr[:-1], deg, unv, p,
-                                           g.col_idx, fw, MAX_POS)
-            rem = ~v & (found == 0) & (deg > MAX_POS)
+            _, (found, _), probes, hits = probe_work(g, unv, p, fw)
+            row["unvisited"] = int(unv.sum())
+            row["probes"] = probes
+            row["bound_ms"] = probe_cost(n, row["unvisited"], probes, hits,
+                                         fw.numel())[0]
+            rem = unv & (found == 0) & (deg > MAX_POS)
             row["residue"] = int(rem.sum())
             # the step skips the fallback when no vertex is left for it
             row["fallback_ms"] = wall_ms(
                 lambda: _fallback_scan(g, fw, rem, p, MAX_POS),
                 reps) if row["residue"] else 0.0
         rows.append(row)
-    td = [r for r in rows if r["dir"] == "TD"]
-    scan_rec["layers"] = dict(
-        root=root, layers=[r["layer"] for r in td],
-        ms=[r["kernel_ms"] for r in td], bound_ms=[r["bound_ms"] for r in td],
-        ms_total=sum(r["kernel_ms"] for r in td),
-        bound_ms_total=sum(r["bound_ms"] for r in td))
+    totals = {}
+    for name, way in (("topdown_scan", "TD"), ("bottom_up_probe", "BU")):
+        done = [r for r in rows if r["dir"] == way]
+        rec[name]["layers"] = layer_sums(done, "kernel_ms", "bound_ms",
+                                         root=root)
+        totals[way] = rec[name]["layers"]
     emit("layers", root=root, rows=rows,
          step_ms_total=sum(r["step_ms"] + r["counters_ms"] for r in rows),
-         topdown_kernel_ms_total=scan_rec["layers"]["ms_total"],
-         topdown_bound_ms_total=scan_rec["layers"]["bound_ms_total"])
+         topdown_kernel_ms_total=totals["TD"]["ms_total"],
+         topdown_bound_ms_total=totals["TD"]["bound_ms_total"],
+         bottomup_kernel_ms_total=totals["BU"]["ms_total"],
+         bottomup_bound_ms_total=totals["BU"]["bound_ms_total"])
+
+
+def layer_sums(rows, ms_key, bound_key, **extra):
+    """A kernel's in-path record over the layer rows that ran it: each
+    layer's time and bound, and their sums."""
+    return dict(**extra, layers=[r["layer"] for r in rows],
+                ms=[r[ms_key] for r in rows],
+                bound_ms=[r[bound_key] for r in rows],
+                ms_total=sum(r[ms_key] for r in rows),
+                bound_ms_total=sum(r[bound_key] for r in rows))
 
 
 def run_main_path(g, args):
@@ -460,13 +493,26 @@ def run_main_path(g, args):
     return res, launches
 
 
-def lane_probe_cost(n, w, probes, words):
-    # reads: starts + deg, the need words, one neighbour id per round in
-    # which any plane gathers, each gathered frontier word (at most the
-    # whole frontier); writes: acc
-    nbytes = 8 * n + 8 * n * w + 4 * probes + 4 * min(words, n * w)
+def lane_probe_cost(n, w, rows, probes, words):
+    # what the work needs, whatever implements it: reads the need words,
+    # the bounds of the rows with a needed lane (row_ptr, at most all of
+    # it), one neighbour id per round in which any plane gathers, each
+    # gathered frontier word (at most the whole frontier); writes acc
+    nbytes = (8 * n * w + min(4 * (n + 1), 8 * rows) + 4 * probes
+              + 4 * min(words, n * w))
     ops = 4 * n * w + 3 * words
     return bound_ms(nbytes, ops)
+
+
+def lane_probe_work(pa):
+    """The work B3's plain version on args ``pa`` needs: (rows with a
+    needed lane, rounds in which any plane gathers, plane gathers)."""
+    probes = words = 0
+    for live, _ in lane_probe_rounds(*pa):
+        probes += int(live.any(dim=-1).sum())
+        words += int(live.sum())
+    rows = int((pa[2] != 0).any(dim=-1).sum())
+    return rows, probes, words
 
 
 def row_or_cost(n, w, edges, has_base, has_active, nf):
@@ -511,8 +557,12 @@ class LaneKernelCheck:
                                             err)
 
     def probe_args(self, frontier, need):
+        """The kernel's arguments (row_ptr) and the plain version's
+        (starts and degrees)."""
         g = self.g
-        return (g.row_ptr[:-1], self.deg, need, g.col_idx, frontier, MAX_POS)
+        return ((g.row_ptr, need, g.col_idx, frontier, MAX_POS),
+                (g.row_ptr[:-1], self.deg, need, g.col_idx, frontier,
+                 MAX_POS))
 
     def fallback_args(self, frontier, need, acc):
         g = self.g
@@ -528,14 +578,15 @@ class LaneKernelCheck:
                 0)
 
     def bottomup(self, label, frontier, need):
-        """Probe, then the fallback form of the row-OR; returns the args."""
-        pa = self.probe_args(frontier, need)
-        acc = msbfs_probe_cuda(*pa)
+        """Probe, then the fallback form of the row-OR; returns the args
+        (the probe's as the kernel and the plain version take them)."""
+        ka, pa = self.probe_args(frontier, need)
+        acc = msbfs_probe_cuda(*ka)
         self._agree("msbfs_probe", label, acc, msbfs_probe_ref(*pa))
         fa = self.fallback_args(frontier, need, acc)
         self._agree("segment_or", f"{label} (bottom-up fallback)",
                     segment_or_rows_cuda(*fa), segment_or_rows_ref(*fa))
-        return pa, fa
+        return ka, pa, fa
 
     def topdown(self, label, frontier, visited, td_sel):
         ta = self.topdown_args(frontier, visited, td_sel)
@@ -553,21 +604,19 @@ def lane_kernel_random(chk, dev, reps, flush):
         fro, vis = random_lanes(n, w, SEED + w, dev)
         need = ~vis
         all_lanes = torch.full((w,), -1, dtype=torch.int32, device=dev)
-        pa, fa = chk.bottomup(f"random W={w}", fro, need)
+        ka, pa, fa = chk.bottomup(f"random W={w}", fro, need)
         ta = chk.topdown(f"random W={w}", fro, vis, all_lanes)
         torch.cuda.synchronize()
         if w != LANES // 32:
             continue
-        probes = words = 0
-        for live, _ in lane_probe_rounds(*pa):
-            probes += int(live.any(dim=-1).sum())
-            words += int(live.sum())
-        cost = lane_probe_cost(n, w, probes, words)
+        rows, probes, words = lane_probe_work(pa)
+        cost = lane_probe_cost(n, w, rows, probes, words)
         chk.rec["msbfs_probe"].update(
-            ms=time_ms(lambda: msbfs_probe_cuda(*pa), reps, flush),
+            ms=time_ms(lambda: msbfs_probe_cuda(*ka), reps, flush),
             plain_ms=time_ms(lambda: msbfs_probe_ref(*pa), reps, flush),
             bound_ms=cost[0], bound_by=cost[1], library_ms=None,
-            timed_input=dict(case=f"random W={w}", vertices=n, probes=probes,
+            timed_input=dict(case=f"random W={w}", vertices=n,
+                             rows_with_need=rows, probes=probes,
                              plane_gathers=words))
         # the top-down form reads every edge slot; its library yardstick is
         # one segment_reduce over the edge contributions unpacked to bits,
@@ -639,12 +688,14 @@ def batched_sweep(g, roots, chk, reps, flush):
         kernel_ms = 0.0
         w = LANES // 32
         if bu.any():
-            pa, fa = chk.bottomup(label, f, ~v & bu_sel)
+            ka, pa, fa = chk.bottomup(label, f, ~v & bu_sel)
             row["fallback_rows"] = int(fa[6].sum())
             row["fallback_slots"] = int(torch.where(
                 fa[6] != 0, (g.deg - MAX_POS).clamp(min=0), 0).sum())
-            row["probe_ms"] = time_ms(lambda: msbfs_probe_cuda(*pa), reps,
+            row["probe_ms"] = time_ms(lambda: msbfs_probe_cuda(*ka), reps,
                                       flush)
+            row["probe_bound_ms"] = lane_probe_cost(
+                n, w, *lane_probe_work(pa))[0]
             row["fallback_ms"] = time_ms(lambda: segment_or_rows_cuda(*fa),
                                          reps, flush)
             row["fallback_bound_ms"] = row_or_cost(
@@ -673,6 +724,8 @@ def batched_layers(g, roots, chk, reps, flush):
             layers=len(done), ms_total=sum(r[f"{form}_ms"] for r in done),
             bound_ms_total=sum(r[f"{form}_bound_ms"] for r in done))
     chk.rec["segment_or"]["forms"] = forms
+    chk.rec["msbfs_probe"]["layers"] = layer_sums(
+        [r for r in rows if "probe_ms" in r], "probe_ms", "probe_bound_ms")
     depth = msbfs_engine_result(g, s, derive_parents=False).depth
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -687,6 +740,7 @@ def batched_layers(g, roots, chk, reps, flush):
          step_ms_total=sum(r["step_ms"] for r in rows),
          kernel_ms_total=sum(r["kernel_ms"] for r in rows),
          syncs_per_layer=[r["syncs"] for r in rows], segment_or_forms=forms,
+         msbfs_probe_layers=chk.rec["msbfs_probe"]["layers"],
          derive_parents_ms=derive_ms, derive_parents_peak_bytes=peak)
     return len(rows)
 
@@ -1492,7 +1546,7 @@ def main(argv=None) -> int:
     states = bfs(g, probe_root, "hybrid")
     rec = compare_kernels(g, states, dev, args.reps, flush)
     layer_breakdown(g, probe_root, states, max(args.reps // 4, 3), flush,
-                    rec["topdown_scan"])
+                    rec)
     torch.cuda.reset_peak_memory_stats()
 
     res, launches = run_main_path(g, args)

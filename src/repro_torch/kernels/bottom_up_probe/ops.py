@@ -16,15 +16,16 @@ from repro_torch.kernels.bottom_up_probe.ref import bottom_up_probe_ref
 def bottom_up_probe(row_ptr: torch.Tensor, col_idx: torch.Tensor,
                     frontier_words: torch.Tensor, unvisited: torch.Tensor,
                     parent: torch.Tensor, max_pos: int = 8):
-    starts = row_ptr[:-1]
-    deg = row_ptr[1:] - row_ptr[:-1]
-    unv = unvisited.to(torch.int32)
+    """The kernel reads ``row_ptr`` and the bool ``unvisited`` as they are;
+    the plain version takes the reference's starts, degrees and int32
+    flags, built from them."""
     if col_idx.device.type == "cuda":
-        found, par = bottom_up_probe_cuda(starts, deg, unv, parent, col_idx,
+        found, par = bottom_up_probe_cuda(row_ptr, unvisited, parent, col_idx,
                                           frontier_words, max_pos)
     elif col_idx.device.type == "cpu":
-        found, par = bottom_up_probe_ref(starts, deg, unv, parent, col_idx,
-                                         frontier_words, max_pos)
+        found, par = bottom_up_probe_ref(row_ptr[:-1], row_ptr.diff(),
+                                         unvisited.to(torch.int32), parent,
+                                         col_idx, frontier_words, max_pos)
     else:
         raise ValueError(f"no bottom_up_probe for device {col_idx.device}")
     return found != 0, par

@@ -57,7 +57,7 @@ def build_kernels() -> Path:
     """Compile every ``csrc/*.cu`` and link them into one shared library.
 
     Returns its path. ``build_info`` records the seconds taken, the sources
-    and ptxas's register/shared-memory report.
+    and ptxas's register, shared-memory and spill report.
     """
     sources = sorted(CSRC_DIR.glob("*.cu"))
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -92,7 +92,8 @@ def build_kernels() -> Path:
                       seconds=time.perf_counter() - t0,
                       sources=[s.name for s in sources],
                       ptxas=[line.strip() for log in logs
-                             for line in log.splitlines() if "ptxas" in line])
+                             for line in log.splitlines()
+                             if "ptxas" in line or "spill" in line])
     return lib_path
 
 

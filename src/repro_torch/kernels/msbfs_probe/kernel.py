@@ -3,8 +3,9 @@
 Replaces ``repro/kernels/msbfs_probe/kernel.py::msbfs_probe_pallas`` with
 the same contract: acc int32[n, W], the OR of the first ``max_pos``
 neighbours' frontier words per vertex and word plane, retired per plane.
-The source file notes what bounds the kernel on the H100 and how its
-design answers it.
+The kernel reads each row's bounds from ``row_ptr`` where the reference
+takes starts and degrees. The source file notes what bounds the kernel on
+the H100 and how its design answers it.
 """
 from __future__ import annotations
 
@@ -23,26 +24,26 @@ def _launcher():
     global _entry
     if _entry is None:
         fn = common.load_library().msbfs_probe_launch
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
-                       _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
+                       _I, _P]
         fn.restype = _I
         _entry = fn
     return _entry
 
 
-def msbfs_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
-                     need_words: torch.Tensor, col_idx: torch.Tensor,
-                     frontier_words: torch.Tensor,
+def msbfs_probe_cuda(row_ptr: torch.Tensor, need_words: torch.Tensor,
+                     col_idx: torch.Tensor, frontier_words: torch.Tensor,
                      max_pos: int = 8) -> torch.Tensor:
-    """Launch the probe. starts/deg are int32[n], need_words int32[n, W],
-    col_idx int32[m], frontier_words int32[nf, W] with nf >= n, all
-    contiguous on one CUDA device. Raises on anything else."""
+    """Launch the probe. row_ptr is int32[n + 1] (row v's slots start at
+    row_ptr[v], and it has row_ptr[v + 1] - row_ptr[v] of them),
+    need_words int32[n, W], col_idx int32[m], frontier_words int32[nf, W]
+    with nf >= n, all contiguous on one CUDA device. Raises on anything
+    else."""
     if need_words.dim() != 2:
         raise ValueError("need_words must be 2-D [n, W]")
     n, w = need_words.shape
-    dev = starts.device
-    common.check_cuda_tensor("starts", starts, n, dev)
-    common.check_cuda_tensor("deg", deg, n, dev)
+    dev = row_ptr.device
+    common.check_cuda_tensor("row_ptr", row_ptr, n + 1, dev)
     common.check_cuda_tensor("need_words", need_words, n * w, dev, width=w)
     common.check_cuda_tensor("col_idx", col_idx, device=dev)
     common.check_cuda_tensor("frontier_words", frontier_words, device=dev,
@@ -51,12 +52,14 @@ def msbfs_probe_cuda(starts: torch.Tensor, deg: torch.Tensor,
     if nf < n:
         raise ValueError(f"frontier_words has {nf} rows, fewer than n={n}")
     m = col_idx.numel()
-    acc = torch.zeros_like(need_words)
-    if n == 0 or w == 0 or m == 0:
+    acc = torch.empty_like(need_words)  # the kernel writes every word
+    if n == 0 or w == 0:
         return acc
+    if m == 0:  # no row has a slot: nothing is gathered
+        return acc.zero_()
     launch = _launcher()
     with torch.cuda.device(dev):
-        err = launch(starts.data_ptr(), deg.data_ptr(), need_words.data_ptr(),
+        err = launch(row_ptr.data_ptr(), need_words.data_ptr(),
                      col_idx.data_ptr(), frontier_words.data_ptr(),
                      acc.data_ptr(), n, nf, w, m, int(max_pos),
                      common.sm_count(dev),

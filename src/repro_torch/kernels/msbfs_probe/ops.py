@@ -18,12 +18,12 @@ from repro_torch.kernels.msbfs_probe.ref import msbfs_probe_ref
 def msbfs_probe(row_ptr: torch.Tensor, col_idx: torch.Tensor,
                 frontier_words: torch.Tensor, need_words: torch.Tensor,
                 max_pos: int = 8) -> torch.Tensor:
-    starts = row_ptr[:-1]
-    deg = row_ptr[1:] - row_ptr[:-1]
+    """The kernel reads ``row_ptr`` as it is; the plain version takes the
+    reference's starts and degrees, built from it."""
     if col_idx.device.type == "cuda":
-        return msbfs_probe_cuda(starts, deg, need_words, col_idx,
-                                frontier_words, max_pos)
+        return msbfs_probe_cuda(row_ptr, need_words, col_idx, frontier_words,
+                                max_pos)
     if col_idx.device.type == "cpu":
-        return msbfs_probe_ref(starts, deg, need_words, col_idx,
-                               frontier_words, max_pos)
+        return msbfs_probe_ref(row_ptr[:-1], row_ptr.diff(), need_words,
+                               col_idx, frontier_words, max_pos)
     raise ValueError(f"no msbfs_probe for device {col_idx.device}")

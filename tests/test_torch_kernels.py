@@ -208,13 +208,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never falls back: CPU tensors are refused before
     anything is built or launched."""
     x = torch.zeros(4, dtype=torch.int32)
+    row_ptr = torch.zeros(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        bottom_up_probe_cuda(x, x, x, x, x, x, 8)
+        bottom_up_probe_cuda(row_ptr, x.bool(), x, x, x, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         topdown_scan_cuda(torch.zeros(5, dtype=torch.int32), x, x, x, 4)
     words = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        msbfs_probe_cuda(x, x, words, x, words, 8)
+        msbfs_probe_cuda(row_ptr, words, x, words, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_or_rows_cuda(torch.zeros(5, dtype=torch.int32), x, words,
                              words)
@@ -250,20 +251,85 @@ def test_build_sources_and_flags():
     assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
 
 
-@pytest.mark.parametrize("max_pos", [1, 8, 32])
+@pytest.mark.parametrize("max_pos", [1, 8, 16, 32, 33])
 def test_bottom_up_probe_cuda_matches_plain(cuda_device, max_pos):
     g = rmat_graph(12, 16, seed=max_pos, device=cuda_device)
     vis, fro = split(g.n, max_pos)
     fw = bitmap.pack(torch.from_numpy(fro).to(cuda_device))
-    unv = torch.from_numpy(~vis).to(cuda_device, torch.int32)
+    unv = torch.from_numpy(~vis).to(cuda_device)
     par = torch.full((g.n,), -1, dtype=torch.int32, device=cuda_device)
-    args = (g.row_ptr[:-1], g.deg, unv, par, g.col_idx, fw, max_pos)
     before = common.LAUNCHES["bottom_up_probe"]
-    k = bottom_up_probe_cuda(*args)
+    k = bottom_up_probe_cuda(g.row_ptr, unv, par, g.col_idx, fw, max_pos)
     torch.cuda.synchronize()
     assert common.LAUNCHES["bottom_up_probe"] == before + 1
-    for a, b in zip(k, bottom_up_probe_ref(*args)):
+    want = bottom_up_probe_ref(g.row_ptr[:-1], g.deg, unv.to(torch.int32),
+                               par, g.col_idx, fw, max_pos)
+    for a, b in zip(k, want):
         assert torch.equal(a, b)
+
+
+def probe_rows_graph(n=300, seed=0):
+    """A CSR with the rows the bottom-up probe has to get right, ids drawn
+    outside the frontier F (the even ids below n) unless placed: a hub
+    (row 0, 2000 slots, first frontier neighbour at position 20), rows of
+    degree 0 (1-5), a first hit at position 7 (row 6) and at 8 (row 7),
+    ids at or past 32 x num_words before a hit at 5 (row 8), an unsorted
+    row whose first hit (position 0) is not its lowest frontier id (row 9),
+    a frontier neighbour past position 33 only (row 10); the rest random.
+    Returns (row_ptr, col_idx, frontier bool[n], the pinned first hits
+    {row: (position, id)})."""
+    rng = np.random.default_rng(seed)
+    fro = np.arange(n) % 2 == 0
+    odd = np.arange(1, n, 2)
+    words = -(-n // 32)
+    rows = [rng.choice(odd, 2000)] + [np.zeros(0, np.int64)] * 5
+    pinned = {0: (20, 40), 6: (7, 42), 7: (8, 44), 8: (5, 46), 9: (0, 98)}
+    for v, size in ((6, 12), (7, 12), (8, 9), (9, 6), (10, 40)):
+        rows.append(rng.choice(odd, size))
+    rows[0][20] = 40
+    rows[6][[7, 9]] = [42, 2]
+    rows[7][8] = 44
+    rows[8][:4] = 32 * words + np.array([0, 1, 31, 64])
+    rows[8][5] = 46
+    rows[9][[0, 3]] = [98, 4]  # sorted, the first hit would be 4
+    rows[10][35] = 48
+    for _ in range(11, n):
+        rows.append(rng.integers(0, n, rng.integers(0, 30)))
+    row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    return row_ptr, np.concatenate(rows), fro, pinned
+
+
+@pytest.mark.parametrize("visited", ["some", "none", "all"])
+@pytest.mark.parametrize("max_pos", [1, 8, 16, 33])
+def test_bottom_up_probe_cuda_probe_rows(cuda_device, visited, max_pos):
+    """The probe, bit-equal to its plain version on probe_rows_graph's
+    rows, and each pinned row's parent is its first hit by position."""
+    row_ptr, col_idx, fro, pinned = probe_rows_graph()
+    n = fro.size
+    g = from_numpy_graph(row_ptr, col_idx, np.repeat(np.arange(n),
+                                                     np.diff(row_ptr)),
+                         cuda_device)
+    fw = bitmap.pack(torch.from_numpy(fro).to(cuda_device))
+    rng = np.random.default_rng(max_pos)
+    vis = {"some": rng.random(n) < 0.4, "none": np.zeros(n, bool),
+           "all": np.ones(n, bool)}[visited]
+    vis[list(pinned) + [10]] = visited == "all"
+    unv = torch.from_numpy(~vis).to(cuda_device)
+    par = torch.from_numpy(rng.integers(-1, n, n).astype(np.int32)).to(
+        cuda_device)
+    before = common.LAUNCHES["bottom_up_probe"]
+    found, got = bottom_up_probe_cuda(g.row_ptr, unv, par, g.col_idx, fw,
+                                      max_pos)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["bottom_up_probe"] == before + 1
+    want = bottom_up_probe_ref(g.row_ptr[:-1], g.deg, unv.to(torch.int32),
+                               par, g.col_idx, fw, max_pos)
+    assert torch.equal(found, want[0]) and torch.equal(got, want[1])
+    found, got, par = found.cpu().numpy(), got.cpu().numpy(), par.cpu()
+    for v, (pos, u) in pinned.items():
+        hit = visited != "all" and pos < max_pos
+        assert found[v] == hit and got[v] == (u if hit else int(par[v]))
+    assert found[10] == 0 and not found[1:6].any()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -424,17 +490,17 @@ def test_bfs_on_gpu_matches_cpu(cuda_device, mode):
         assert common.LAUNCHES["bottom_up_probe"] > 0
 
 
-@pytest.mark.parametrize("w", [1, 2, 8])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 9, 16])
 def test_lane_kernels_cuda_match_plain(cuda_device, w):
     """msbfs_probe (raw acc) and both forms of the row-OR, bit-equal to
     their plain versions, with a frontier of more rows than the graph."""
     g = rmat_graph(12, 16, seed=w, device=cuda_device)
     fro, vis = lane_split(g.n + 37, w, w, cuda_device)
     need = ~vis[:g.n]
-    args = (g.row_ptr[:-1], g.deg, need, g.col_idx, fro, 8)
     before = dict(common.LAUNCHES)
-    acc = msbfs_probe_cuda(*args)
-    assert torch.equal(acc, msbfs_probe_ref(*args))
+    acc = msbfs_probe_cuda(g.row_ptr, need, g.col_idx, fro, 8)
+    assert torch.equal(acc, msbfs_probe_ref(g.row_ptr[:-1], g.deg, need,
+                                            g.col_idx, fro, 8))
     found = acc & need
     residue = ((need & ~found) != 0).any(dim=-1) & (g.deg > 8)
     sel = torch.from_numpy(np.array([-1, 0x5555AAAA] * w, np.int64)[:w]
@@ -447,6 +513,64 @@ def test_lane_kernels_cuda_match_plain(cuda_device, w):
     torch.cuda.synchronize()
     assert common.LAUNCHES["msbfs_probe"] == before["msbfs_probe"] + 1
     assert common.LAUNCHES["segment_or"] == before["segment_or"] + 2
+
+
+def lane_probe_rows(n, nf, w, seed):
+    """Rows and lane words the lane-word probe has to get right: a hub
+    (row 0, 600 slots), rows of degree 0 (1-3), ids at or past nf and
+    negative ones (row 4), need rows of zeros (5-7, and a fifth of the
+    rest), and row 8, whose plane 0 retires at position 2 while its last
+    plane stays live to position 9 (a later gather past retirement would
+    change plane 0's raw acc). Returns (row_ptr, col_idx, frontier int32[nf,
+    w], need int32[n, w])."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, nf, 600)] + [np.zeros(0, np.int64)] * 3
+    rows.append(np.array([nf, -1, 3, nf + 5, 4, 2 ** 31 - 1, 6]))
+    rows += [rng.integers(0, nf, 12) for _ in range(4)]
+    rows[8] = np.arange(10, 22)  # frontier rows 10..21, set below
+    for _ in range(9, n):
+        rows.append(rng.integers(0, nf, rng.integers(0, 40)))
+    row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    words = rng.integers(0, 2 ** 32, (2, nf, w), dtype=np.uint32)
+    fro = words[0] & words[1]
+    need = rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32)
+    need[rng.random(n) < 0.2] = 0
+    need[5:8] = 0
+    need[8] = 1
+    fro[10:22] = 0
+    fro[12, 0] = 1  # plane 0 retires at position 2
+    fro[13:22, 0] = 0xF0
+    fro[19, w - 1] = 1  # the last plane retires at position 9
+    fro[20:22, w - 1] = 0xF00
+    return (row_ptr, np.concatenate(rows), fro.view(np.int32),
+            need.view(np.int32))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("max_pos", [1, 8, 16, 33])
+def test_msbfs_probe_cuda_probe_rows(cuda_device, w, max_pos):
+    """The lane-word probe, bit-equal to its plain version (raw acc) on
+    lane_probe_rows, a frontier of more rows than the graph; and row 8's
+    planes retire where the rule says."""
+    n = 300
+    nf = n + 37
+    row_ptr, col_idx, fro, need = lane_probe_rows(n, nf, w, w * 100 + max_pos)
+    g = from_numpy_graph(row_ptr, col_idx, np.repeat(np.arange(n),
+                                                     np.diff(row_ptr)),
+                         cuda_device)
+    fro_t = torch.from_numpy(fro).to(cuda_device)
+    need_t = torch.from_numpy(need).to(cuda_device)
+    before = common.LAUNCHES["msbfs_probe"]
+    got = msbfs_probe_cuda(g.row_ptr, need_t, g.col_idx, fro_t, max_pos)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["msbfs_probe"] == before + 1
+    want = msbfs_probe_ref(g.row_ptr[:-1], g.deg, need_t, g.col_idx, fro_t,
+                           max_pos)
+    assert torch.equal(got, want)
+    acc = got.cpu().numpy().view(np.uint32)
+    assert not acc[1:4].any() and not acc[5:8].any()
+    if max_pos >= 16:
+        assert acc[8, 0] == 1 and acc[8, w - 1] == 1
 
 
 @pytest.mark.parametrize("mode", ["hybrid", "topdown", "bottomup"])
@@ -549,6 +673,36 @@ def test_relax_bound_counts_row_ptr():
               + 4 * n * lanes)
     assert smoke.relax_cost(n, lanes, slots, finite, rows) == (
         smoke.bound_ms(nbytes, 2 * finite * lanes))
+
+
+@pytest.mark.parametrize("kernel", ["bottom_up_probe", "msbfs_probe"])
+def test_probe_bounds_count_what_the_work_needs(kernel):
+    """chip_smoke.py's bounds for the two probes count what the work reads
+    and writes once: the flags as bytes (B1), the parents that pass
+    through, row_ptr entries of the rows that probe (at most all n + 1),
+    an id per probe, the frontier words tested (at most all of them), and
+    the outputs."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n = 1000
+    if kernel == "bottom_up_probe":
+        unvisited, probes, hits, nw = 300, 1500, 200, 32
+        nbytes = (n + 4 * (n - hits) + 8 * unvisited + 4 * probes + 4 * nw
+                  + 8 * n)
+        assert smoke.probe_cost(n, unvisited, probes, hits, nw) == (
+            smoke.bound_ms(nbytes, 4 * n + 8 * probes))
+        # few probing rows read their bounds; many read all of row_ptr
+        assert smoke.probe_cost(n, 900, 10, 0, nw)[0] == smoke.bound_ms(
+            n + 4 * n + 4 * (n + 1) + 40 + 40 + 8 * n, 0)[0]
+    else:
+        w, rows, probes, words = 2, 300, 900, 1500
+        nbytes = 8 * n * w + 8 * rows + 4 * probes + 4 * words
+        assert smoke.lane_probe_cost(n, w, rows, probes, words) == (
+            smoke.bound_ms(nbytes, 4 * n * w + 3 * words))
+        assert smoke.lane_probe_cost(n, w, n, 0, 10 * n * w)[0] == (
+            smoke.bound_ms(8 * n * w + 4 * (n + 1) + 4 * n * w, 0)[0])
 
 
 @pytest.mark.parametrize("lanes", [1, 32, 33])
