@@ -60,6 +60,30 @@ phase prints one JSON line:
            kernel a step), then one step on the kernels against the plain
            aggregation on the same card, and kill-and-resume at
            full_graph_sm (exact);
+  figures  the paper's figure scripts (repro_torch.benchmarks) on the
+           graph: Table 2's switching trace of the probe root's BFS (each
+           direction checked against the switch rule, v_f summing to the
+           reach), Table 3's retired fractions at MAX_POS 1-16 (retired +
+           residue at 8 within the unvisited count), Table 4's per-layer
+           SIMD and non-SIMD bottom-up steps (best of 3 wall times, their
+           sums and ratio; both steps' vertices and parents equal on every
+           layer), then Fig. 3's harmonic-mean TEPS of hybrid,
+           hybrid_nosimd and topdown at edgefactor 16, 32 and 64 (16 roots,
+           3 repeats in turns: median and spread), with the launches;
+  analytics       the analytics layer on LaneEngine(lanes=None) over the
+           weighted graph: khop (64 sources, k = 2), bfs_depths, reach_hops,
+           closeness (auto: 256 sampled sources), diameter bounds,
+           sssp_distances and weighted closeness (32 sources), each with its
+           wall time, sweeps, lanes and layers, and the launches of the
+           unweighted and the weighted queries; connected_components at
+           scale 16 (the cut is printed); depth columns against
+           msbfs_pipelined and the serial bfs (one against the numpy
+           oracle), closeness of 8 vertices and the diameter bounds against
+           the serial bfs, components against scipy, 4 SSSP lanes against
+           Dijkstra, every result through the wire codec; then
+           analytics_bench's closeness and khop points at the graph's
+           scale and its components point at scale 16, and sssp_teps'
+           wcloseness;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
@@ -69,6 +93,8 @@ repository's src/.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -84,15 +110,33 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.analytics import (LaneEngine, bfs_depths,  # noqa: E402
+                                   closeness_centrality,
+                                   connected_components, diameter_bounds,
+                                   khop_neighborhood, reach_hops,
+                                   sssp_distances,
+                                   weighted_closeness_centrality)
+from repro_torch.analytics.api import (result_from_wire,  # noqa: E402
+                                       result_to_wire)
+from repro_torch.analytics.closeness import select_sources  # noqa: E402
+from repro_torch.benchmarks import analytics_bench  # noqa: E402
+from repro_torch.benchmarks.fig3_teps import MODES as FIG3_MODES  # noqa: E402
+from repro_torch.benchmarks.fig3_teps import teps_point  # noqa: E402
 from repro_torch.benchmarks.sssp_teps import (bench_points,  # noqa: E402
                                               unit_weight_graph)
+from repro_torch.benchmarks.table2_switching import switching_rows  # noqa: E402
+from repro_torch.benchmarks.table3_maxpos import maxpos_rows  # noqa: E402
+from repro_torch.benchmarks.table4_counters import (counter_rows,  # noqa: E402
+                                                    layer_states as bu_entry)
 from repro_torch.core import bitmap  # noqa: E402
-from repro_torch.core.bottomup import _fallback_scan, bottomup_simd_step  # noqa: E402
+from repro_torch.core.bottomup import (_fallback_scan,  # noqa: E402
+                                       bottomup_nosimd_step,
+                                       bottomup_simd_step)
 from repro_torch.configs.base import (effective_cfg, get_arch,  # noqa: E402
                                       make_step, param_builders)
 from repro_torch.core.csr import CSRGraph, ell_pad, to_numpy_adj  # noqa: E402
 from repro_torch.core.hybrid import (ALPHA_DEFAULT, BETA_DEFAULT,  # noqa: E402
-                                     MAX_TRACE, bfs)
+                                     MAX_TRACE, bfs, switch_direction)
 from repro_torch.core.msbfs import (_derive_parents, _plan, _refill,  # noqa: E402
                                     msbfs_engine_enqueue, msbfs_engine_idle,
                                     msbfs_engine_init, msbfs_engine_result,
@@ -102,8 +146,8 @@ from repro_torch.core.packed import (lane_counters, pack_lanes_np,  # noqa: E402
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
 from repro_torch.data.pipeline import gnn_batch  # noqa: E402
-from repro_torch.graph.generator import (rmat_weighted_graph,  # noqa: E402
-                                         sample_roots)
+from repro_torch.graph.generator import (rmat_graph,  # noqa: E402
+                                         rmat_weighted_graph, sample_roots)
 from repro_torch.graph.graph500 import run_graph500  # noqa: E402
 from repro_torch.graph.validate import validate_bfs_tree  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -193,6 +237,19 @@ LANES = 64
 SSSP_LANES = 32
 SWEEP_TIMED_ROW = 20  # sssp_layers times relax_fallback in full from here
 INF = float("inf")
+FIG3_EDGEFACTORS = (16, 32, 64)
+FIG3_ROOTS = 16
+FIG3_REPEATS = 3
+KHOP_SOURCES = 64
+WEIGHTED_SOURCES = 32
+# connected_components seeds 64 roots a sweep and copies the sweep's [n, 64]
+# depths to the host: at scale 20, most of whose components are isolated
+# vertices, thousands of sweeps (the analytics phase prints the count)
+COMPONENTS_SCALE = 16
+# closeness against float64 sums of the serial bfs's depths: both sum
+# integers below 2**53, so they agree to the last bit; this allows rounding
+# in the last place of the final division
+CLOSENESS_RTOL = 1e-12
 
 
 class SmokeFailure(RuntimeError):
@@ -1159,7 +1216,7 @@ def run_sssp_path(wg, args):
                      steps_max=int(res2.steps.max())),
          dijkstra_lanes=4, dijkstra_max_abs_err=err,
          unit_weight_anchor_lanes=k, teps=points)
-    return launches, sweep_steps
+    return launches, sweep_steps, points
 
 
 def f32_bound(abs_sum64, deg):
@@ -1500,6 +1557,318 @@ def run_gcn_path(dev):
     return launches
 
 
+def quiet(fn, *args, **kwargs):
+    """``fn`` with its printed table dropped: the phase lines carry the
+    rows."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def spread(values) -> dict:
+    med = statistics.median(values)
+    return dict(values=values, median=med,
+                spread=(max(values) - min(values)) / med if med else 0.0)
+
+
+def figure_tables(g, args, probe_bfs):
+    """Tables 2-4 of the paper's figure scripts on the shared graph, with
+    their launches, then their checks."""
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    t2 = quiet(switching_rows, g, args.scale, EDGEFACTOR, SEED)
+    t3 = quiet(maxpos_rows, g, args.scale, EDGEFACTOR, SEED)
+    t4 = quiet(counter_rows, g, args.scale, EDGEFACTOR, SEED, MAX_POS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    check(launches["bottom_up_probe"] > 0 and launches["topdown_scan"] > 0,
+          f"Tables 2-4 launched {launches}")
+
+    # Table 2: each layer's direction is the switch rule applied to the
+    # previous direction and this layer's counters; v_f sums to the reach
+    depth = probe_bfs.depth
+    topdown = True
+    for r in t2:
+        topdown = bool(switch_direction(topdown, r["e_f"], r["v_f"],
+                                        r["e_u"], g.n))
+        check(r["approach"] == ("top-down" if topdown else "bottom-up"),
+              f"Table 2 layer {r['layer']}: {r['approach']} against the "
+              f"switch rule")
+    reached = int((depth >= 0).sum())
+    check(sum(r["v_f"] for r in t2) == reached,
+          "Table 2's v_f column does not sum to the vertices reached")
+    # Table 3: retired + residue at MAX_POS 8 fit in the unvisited count
+    for r in t3:
+        unvisited = int(torch.count_nonzero(~bu_entry(depth, r["layer"])[1]))
+        retired8 = round(r["retired_frac"][8] * r["found"])
+        check(retired8 + r["residue8"] <= unvisited,
+              f"Table 3 layer {r['layer']}: retired {retired8} + residue "
+              f"{r['residue8']} > unvisited {unvisited}")
+    # Table 4: the SIMD and the non-SIMD step find the same vertices and
+    # parents on every layer
+    for r in t4:
+        f, v = bu_entry(depth, r["layer"])
+        p = torch.full((g.n,), -1, dtype=torch.int32, device=g.device)
+        a = bottomup_simd_step(g, f, v, p, MAX_POS)
+        b = bottomup_nosimd_step(g, f, v, p)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[2], b[2]),
+              f"Table 4 layer {r['layer']}: SIMD and non-SIMD steps differ")
+    emit("figures", table="table2", rows=t2, reached=reached)
+    emit("figures", table="table3", rows=t3)
+    simd = sum(r["t_simd_ms"] for r in t4)
+    nosimd = sum(r["t_nosimd_ms"] for r in t4)
+    emit("figures", table="table4", rows=t4, t_simd_ms_sum=simd,
+         t_nosimd_ms_sum=nosimd, nosimd_over_simd=nosimd / simd,
+         simd_time_saved=1.0 - simd / nosimd, seconds=seconds,
+         launches=launches, max_pos=MAX_POS,
+         timing="best of 3 host wall times, each ending in a device sync")
+
+
+def figure3(g, args):
+    """Fig. 3: harmonic-mean TEPS of each mode at the shared scale and each
+    edgefactor, 16 roots, each point timed FIG3_REPEATS times in turns,
+    with the launches at each edgefactor."""
+    for ef in FIG3_EDGEFACTORS:
+        t0 = time.perf_counter()
+        ge = g if ef == EDGEFACTOR else rmat_graph(args.scale, ef, SEED)
+        torch.cuda.synchronize()
+        gen_seconds = time.perf_counter() - t0
+        teps = {mode: [] for mode in FIG3_MODES}
+        common.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(FIG3_REPEATS):
+            for mode in FIG3_MODES:
+                teps[mode].append(teps_point(ge, args.scale, ef, mode,
+                                             FIG3_ROOTS, SEED))
+        seconds = time.perf_counter() - t0
+        launches = dict(common.LAUNCHES)
+        check(launches["bottom_up_probe"] > 0
+              and launches["topdown_scan"] > 0,
+              f"Fig. 3 at edgefactor {ef} launched {launches}")
+        for mode, values in teps.items():
+            check(all(v > 0 for v in values), f"Fig. 3 {mode} ef={ef}: 0 TEPS")
+        emit("figures", table="fig3", scale=args.scale, edgefactor=ef, n=ge.n,
+             m=ge.m, roots=FIG3_ROOTS, repeats=FIG3_REPEATS,
+             graph_seconds=gen_seconds if ge is not g else 0.0,
+             seconds=seconds, launches=launches,
+             harmonic_mean_teps={m: spread(v) for m, v in teps.items()})
+        del ge
+
+
+def timed_query(name, fn):
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = res.meta
+    emit("analytics", query=name, kind=m.kind, seconds=seconds,
+         sweeps=m.sweeps, lanes=m.lanes, layers=m.layers,
+         truncated=m.truncated, extra={k: v for k, v in m.extra.items()
+                                       if not isinstance(v, tuple)})
+    return res
+
+
+def sweep_split(sweep, roots, field: str) -> dict:
+    """Seconds of one engine sweep (ending in a device sync) and of the
+    host copy of its ``field``: what a query adds on the host is its wall
+    time less these."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(roots)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    getattr(res, field).cpu().numpy()
+    return dict(roots=len(roots), sweep=t1 - t0,
+                host_copy=time.perf_counter() - t1)
+
+
+def wire_round_trip(res) -> int:
+    """JSON bytes of ``res``; raises unless it decodes to the same bits."""
+    wire = json.dumps(result_to_wire(res), sort_keys=True)
+    back = result_from_wire(json.loads(wire))
+    check(json.dumps(result_to_wire(back), sort_keys=True) == wire,
+          f"{type(res).__name__} does not round-trip through the wire")
+    check(back.meta == res.meta, f"{type(res).__name__}: meta changed")
+    return len(wire)
+
+
+def scipy_components(g):
+    """(count, labels) of ``g``'s connected components by scipy."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as sp_components
+    rp, ci = to_numpy_adj(g)
+    a = sp.csr_matrix((np.ones(ci.size, np.int8), ci, rp), shape=(g.n, g.n))
+    return sp_components(a, directed=False)
+
+
+def same_partition(labels, g) -> int:
+    """Raises unless ``labels`` induce scipy's partition of ``g``. Returns
+    the component count."""
+    count, lab = scipy_components(g)
+    canon = np.full(count, g.n, np.int64)
+    np.minimum.at(canon, lab, np.arange(g.n))   # each component's min id
+    check(np.array_equal(canon[lab], labels),
+          "component labels differ from scipy's partition")
+    return int(count)
+
+
+def serial_depths(g, sources, rows=None) -> np.ndarray:
+    """int32[len(rows), S] depth columns of the serial hybrid bfs (the
+    engine the main phase validates), one BFS per source; ``rows`` None
+    keeps every vertex."""
+    cols = []
+    for s in sources:
+        d = bfs(g, int(s), "hybrid").depth
+        cols.append(d if rows is None else d[rows])
+    return torch.stack(cols, dim=1).cpu().numpy()
+
+
+def independent_checks(g, roots, res) -> dict:
+    """The lane engine's answers against the serial bfs and the numpy
+    oracle: every khop and bfs depth column, closeness (float64, relative
+    CLOSENESS_RTOL) of the top 3 and 5 seeded vertices from the query's
+    256 sources, and the diameter bounds from their sources' eccentricities.
+    Raises on a difference."""
+    want = serial_depths(g, roots)
+    check(np.array_equal(res["khop"].depth, want),
+          "khop depths differ from the serial bfs")
+    check(np.array_equal(res["bfs"].depth, want),
+          "bfs_depths differ from the serial bfs")
+    rp, ci = to_numpy_adj(g)
+    check(np.array_equal(res["bfs"].depth[:, 0],
+                         bfs_reference(rp, ci, int(roots[0]))[1]),
+          "bfs_depths lane 0 differs from bfs_reference")
+
+    clo = res["closeness"]
+    rng = np.random.default_rng(SEED + 3)
+    verts = np.unique(np.concatenate([
+        [v for v, _ in clo.top(3)], rng.choice(g.n, 5, replace=False)]))
+    src = select_sources(g.n, "auto", clo.seed)[0]
+    check(src.size == clo.num_sources, "closeness source count differs")
+    d = serial_depths(g, src, torch.from_numpy(verts).to(g.device))
+    reached = d >= 0
+    scale = g.n / src.size
+    r_hat = scale * reached.sum(axis=1).astype(np.float64)
+    s_hat = scale * np.where(reached, d, 0).sum(axis=1).astype(np.float64)
+    ok = (s_hat > 0) & (r_hat > 1)
+    want_c = np.zeros(verts.size)
+    want_c[ok] = (r_hat[ok] - 1.0) ** 2 / (s_hat[ok] * (g.n - 1))
+    got_c = clo.closeness[verts]
+    rel = float(np.max(np.abs(got_c - want_c) / np.maximum(want_c, 1e-300)))
+    check(rel <= CLOSENESS_RTOL, f"closeness differs from the serial bfs "
+          f"sums by {rel} (relative)")
+
+    dia = res["diameter"]
+    d = serial_depths(g, dia.sources)
+    ecc = [int(d[:, i].max()) for i in range(d.shape[1])
+           if d[dia.component, i] >= 0]
+    check(bool(ecc) and dia.lower == max(ecc) and dia.upper == 2 * min(ecc),
+          f"diameter bounds {dia.lower}, {dia.upper} against the serial "
+          f"eccentricities {ecc}")
+    return dict(depth_columns=want.shape[1], oracle_columns=1,
+                closeness_vertices=verts.tolist(),
+                closeness_max_rel_err=rel, closeness_rtol=CLOSENESS_RTOL,
+                diameter_sources=len(dia.sources))
+
+
+def run_analytics(wg, args, sssp_points):
+    """The analytics layer on a LaneEngine(lanes=None) over the weighted
+    graph, each query timed, with the launches of the unweighted and the
+    weighted queries; then components at COMPONENTS_SCALE, the checks, and
+    analytics_bench's points (components at COMPONENTS_SCALE)."""
+    eng = LaneEngine(wg, lanes=None)
+    g = eng.g
+    roots = sample_roots(g, KHOP_SOURCES, seed=SEED + 2)
+    sources = sample_roots(wg, WEIGHTED_SOURCES, seed=SEED + 1)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    res = dict(
+        khop=timed_query("khop_neighborhood k=2", lambda: khop_neighborhood(
+            eng, roots, 2)),
+        bfs=timed_query("bfs_depths", lambda: bfs_depths(eng, roots)),
+        reach=timed_query("reach_hops", lambda: reach_hops(
+            eng, roots[:KHOP_SOURCES // 2], roots)),
+        closeness=timed_query("closeness_centrality auto", lambda:
+                              closeness_centrality(eng, "auto")),
+        diameter=timed_query("diameter_bounds", lambda: diameter_bounds(eng)))
+    unweighted = dict(common.LAUNCHES)
+    common.reset_launches()
+    res["sssp"] = timed_query("sssp_distances", lambda: sssp_distances(
+        eng, sources))
+    res["wcloseness"] = timed_query(
+        "weighted_closeness_centrality", lambda:
+        weighted_closeness_centrality(eng, sources=WEIGHTED_SOURCES,
+                                      seed=SEED))
+    weighted = dict(common.LAUNCHES)
+    for name in BATCHED_KERNELS:
+        check(unweighted[name] > 0,
+              f"{name} was not launched by the unweighted queries")
+    for name in SSSP_KERNELS:
+        check(weighted[name] > 0,
+              f"{name} was not launched by the weighted queries")
+
+    scale = min(args.scale, COMPONENTS_SCALE)
+    full_count = scipy_components(g)[0]
+    cut = (f"scale {scale}, not {args.scale}: connected_components seeds 64 "
+           f"roots a sweep and copies the [n, 64] depths to the host each "
+           f"sweep; at scale {args.scale} ({full_count} components by "
+           f"scipy) that is at least {-(-full_count // 64)} sweeps of "
+           f"{4 * 64 * g.n} bytes")
+    g_cc = g if scale == args.scale else rmat_graph(scale, EDGEFACTOR, SEED)
+    eng_cc = LaneEngine(g_cc, lanes=None)
+    common.reset_launches()
+    comps = timed_query("connected_components", lambda: connected_components(
+        eng_cc))
+    cc_launches = dict(common.LAUNCHES)
+    res["components"] = comps
+
+    # checks: depth columns, closeness, diameter, components, Dijkstra,
+    # the wire
+    want = msbfs_pipelined(g, roots, "hybrid", lanes=eng.lanes_for(len(roots)),
+                           derive_parents=False).depth.cpu().numpy()
+    check(np.array_equal(res["khop"].depth, want),
+          "khop depths differ from msbfs_pipelined")
+    check(np.array_equal(res["bfs"].depth, want),
+          "bfs_depths differ from msbfs_pipelined")
+    independent = independent_checks(g, roots, res)
+    count = same_partition(comps.labels, g_cc)
+    check(count == comps.num_components, "component counts differ")
+    err = dijkstra_check(wg, sources, torch.from_numpy(res["sssp"].dist))
+    split = dict(
+        khop=sweep_split(eng.sweep, roots, "depth"),
+        closeness=sweep_split(eng.sweep, select_sources(g.n, "auto", SEED)[0],
+                              "depth"),
+        sssp=sweep_split(eng.sssp_sweep, sources, "dist"))
+    wire_bytes = {k: wire_round_trip(r) for k, r in res.items()}
+    emit("analytics", query="checks", lanes_for_64=eng.lanes_for(64),
+         launches_unweighted=unweighted, launches_weighted=weighted,
+         launches_components=cc_launches,
+         components=dict(scale=scale, cut=cut, n=g_cc.n,
+                         full_scale_components=full_count,
+                         num_components=comps.num_components,
+                         largest=comps.largest, sweeps=comps.sweeps,
+                         matches_scipy=True),
+         depth_columns_match_msbfs=True, independent=independent,
+         dijkstra_lanes=4,
+         dijkstra_max_abs_err=err, sweep_split=split, wire_bytes=wire_bytes,
+         diameter=dict(lower=res["diameter"].lower,
+                       upper=res["diameter"].upper),
+         closeness_top=res["closeness"].top(3))
+    del res, want
+    # analytics_bench's points: closeness and khop on this engine, the
+    # components point on the cut graph
+    points = {name: dict(teps=work / dt, seconds=dt) for name, work, dt in (
+        analytics_bench.components_point(eng_cc, scale),
+        analytics_bench.closeness_point(eng, args.scale),
+        analytics_bench.khop_point(eng, args.scale))}
+    del eng_cc, g_cc
+    emit("analytics", query="bench", analytics_bench=points,
+         components_scale=scale, cut=cut,
+         wcloseness={k: v for k, v in sssp_points.items()
+                     if k.startswith("wcloseness")})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -1568,7 +1937,7 @@ def main(argv=None) -> int:
         emit("sssp_kernel", name=name, bit_equal=True, **r)
     del flush
     batched_launches = run_batched_path(g, args, res)
-    sssp_launches, sssp_steps = run_sssp_path(wg, args)
+    sssp_launches, sssp_steps, sssp_points = run_sssp_path(wg, args)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     gchk = GnnKernelCheck()
@@ -1576,6 +1945,10 @@ def main(argv=None) -> int:
     gcn_layers(dev, max(args.reps // 4, 3), flush)
     del flush
     gcn_launches = run_gcn_path(dev)
+
+    figure_tables(g, args, states)
+    figure3(g, args)
+    run_analytics(wg, args, sssp_points)
 
     kernels = []
     for name in KERNELS:

@@ -1,0 +1,161 @@
+"""Engine facade of the analytics layer (port of
+``repro.analytics.engine``).
+
+Every analytics workload (components, closeness, k-hop, diameter bounds)
+reduces to one primitive: one pipelined MS-BFS sweep over a batch of roots,
+returning per-lane depths. ``LaneEngine`` is that primitive with the
+lane-pool sizing folded in: ``lanes=None`` sizes the pool per sweep with
+``packed.adaptive_lane_pool``, the ``lanes=0`` surface of the Graph500
+harness. Sweeps run ``core.msbfs.msbfs_pipelined`` on the graph's device.
+
+Built from a ``WeightedCSRGraph`` the engine also serves weighted sweeps:
+``sssp_sweep`` runs the delta-stepping engine (``traversal.sssp``) over the
+same graph, for the ``SSSPQuery`` / ``WeightedClosenessQuery`` workloads.
+Boolean sweeps on a weighted engine ignore the weights.
+
+The reference's distributed knobs (``ndev > 1``, ``mesh``, ``grid``,
+``compress``) and its ``telemetry`` bundle raise ``NotImplementedError``
+until the distributed engines and the observability layer are ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.csr import CSRGraph, WeightedCSRGraph
+from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT
+from repro_torch.core.msbfs import MSBFSResult, msbfs_pipelined
+from repro_torch.core.packed import MODES, adaptive_lane_pool
+from repro_torch.traversal.sssp import DEFAULT_LANES, sssp_pipelined
+
+__all__ = ["LaneEngine", "as_engine", "pad_roots"]
+
+
+def pad_roots(roots: np.ndarray, width: int) -> np.ndarray:
+    """Pad a root batch to the fixed sweep ``width`` by repeating the
+    first root; callers discard the padded lanes' results. Shared by the
+    analytics batch loops (components / closeness / diameter)."""
+    roots = np.asarray(roots, np.int32)
+    if roots.size > width:
+        raise ValueError(
+            f"{roots.size} roots exceed the fixed sweep width {width} — "
+            f"an over-width batch would silently recompile per size")
+    if roots.size == width:
+        return roots
+    return np.concatenate(
+        [roots, np.full(width - roots.size, roots[0], np.int32)])
+
+
+def _not_ported(what: str, item: int, layer: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs {layer}, which is not ported yet (ROADMAP queue A "
+        f"item {item})")
+
+
+class LaneEngine:
+    """MS-BFS (and SSSP) sweep runner shared by all analytics, on the
+    graph's device."""
+
+    def __init__(self, g: CSRGraph | WeightedCSRGraph, *, ndev: int = 1,
+                 mesh=None, grid: tuple[int, int] | None = None,
+                 compress: bool = False, lanes: int | None = None,
+                 mode: str = "hybrid", alpha: float = ALPHA_DEFAULT,
+                 beta: float = BETA_DEFAULT, max_pos: int = 8,
+                 probe_impl: str = "xla", telemetry=None):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if telemetry is not None:
+            raise _not_ported("telemetry=", 8, "the observability layer")
+        for name, value in (("ndev > 1", int(ndev) > 1),
+                            ("mesh=", mesh is not None),
+                            ("grid=", grid is not None),
+                            ("compress=True", compress)):
+            if value:
+                raise _not_ported(name, 9, "the distributed engines")
+        self.wg = g if isinstance(g, WeightedCSRGraph) else None
+        self.g = g.csr if self.wg is not None else g
+        self.lanes = lanes
+        self.mode = mode
+        self.alpha = alpha
+        self.beta = beta
+        self.max_pos = max_pos
+        # the SSSP lanes' relax_impl; on the card both relax kernels run
+        # whatever it says (traversal/sssp.py::_relax)
+        self.probe_impl = probe_impl
+        # the one-device partition, as the results' metadata records it
+        self.ndev = 1
+        self.grid = None
+        self.compress = False
+
+    @property
+    def n(self) -> int:
+        return self.g.n
+
+    @property
+    def m(self) -> int:
+        return self.g.m
+
+    def lanes_for(self, num_roots: int) -> int:
+        """Lane-pool width for a sweep of ``num_roots``: the pinned value
+        or the adaptive sizing rule."""
+        if self.lanes:
+            return self.lanes
+        return adaptive_lane_pool(num_roots, self.n, self.m)
+
+    def sweep(self, roots, derive_parents: bool = False) -> MSBFSResult:
+        """One pipelined engine sweep; ``depth`` is [n, R] on the graph's
+        device. By default ``parent`` is zero-width: every analytics
+        workload reads depths only, and the parent derivation is most of
+        a sweep's time; pass ``derive_parents=True`` for Graph500
+        parents."""
+        roots = np.asarray(roots, np.int32).reshape(-1)
+        if roots.size < 1:
+            raise ValueError("need at least one root")
+        return msbfs_pipelined(self.g, roots, mode=self.mode,
+                               alpha=self.alpha, beta=self.beta,
+                               max_pos=self.max_pos,
+                               lanes=self.lanes_for(roots.size),
+                               derive_parents=derive_parents)
+
+    @property
+    def weighted(self) -> bool:
+        return self.wg is not None
+
+    def sssp_lanes_for(self, num_roots: int) -> int:
+        """Dense-lane pool width for a weighted sweep: dense float32 lanes
+        cost about 32x a packed bit lane, so a pinned bit-pool width is
+        capped at the tropical engine's own default."""
+        cap = min(self.lanes, DEFAULT_LANES) if self.lanes else DEFAULT_LANES
+        return max(1, min(num_roots, cap))
+
+    def sssp_sweep(self, roots, delta=None):
+        """One pipelined delta-stepping sweep over the engine's weighted
+        graph; returns ``traversal.sssp.SSSPResult`` (``dist`` is float32
+        [n, R] on the graph's device, inf unreached). ``delta`` is a
+        scalar width or a per-lane tuple (None picks the graph
+        default)."""
+        if self.wg is None:
+            raise TypeError(
+                "weighted sweep on an unweighted engine — build the "
+                "LaneEngine from a WeightedCSRGraph (e.g. "
+                "graph.generator.rmat_weighted_graph) to serve "
+                "sssp/weighted-closeness queries")
+        roots = np.asarray(roots, np.int32).reshape(-1)
+        if roots.size < 1:
+            raise ValueError("need at least one source")
+        return sssp_pipelined(self.wg, roots, delta=delta,
+                              lanes=self.sssp_lanes_for(roots.size),
+                              max_pos=self.max_pos,
+                              relax_impl=self.probe_impl)
+
+
+def as_engine(g_or_engine, **kwargs) -> LaneEngine:
+    """Accept either a graph (build an engine with ``kwargs``) or an
+    already-built ``LaneEngine`` (reuse it — kwargs must then be empty, a
+    half-applied override would silently diverge from the engine's
+    config)."""
+    if isinstance(g_or_engine, LaneEngine):
+        if kwargs:
+            raise ValueError(
+                f"engine already built; unexpected overrides {sorted(kwargs)}")
+        return g_or_engine
+    return LaneEngine(g_or_engine, **kwargs)

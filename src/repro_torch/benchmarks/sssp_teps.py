@@ -1,16 +1,17 @@
 """Weighted-path (SSSP) throughput of the delta-stepping lane engine on the
-GPU (port of the ``pipelined`` and ``unitweight`` points of
-``benchmarks/sssp_bench.py``).
+GPU (port of ``benchmarks/sssp_bench.py``).
 
 * ``pipelined``: R sources through one pipelined delta-stepping sweep,
   Graph500 R-MAT with uniform (0, 1) weights at ``default_delta``;
 * ``unitweight``: the same sweep over unit weights at ``delta = 1``, where
   the bucket walk is the BFS layer walk: its gap to the MS-BFS engine
-  prices the dense float lanes.
+  prices the dense float lanes;
+* ``wcloseness``: sampled weighted closeness, k sources through the
+  analytics layer's chunked estimator (``LaneEngine``, chunk = lanes).
 
 Each point is TEPS-equivalent, the reference's work proxy R * (m // 2)
-over the sweep's wall time (after one warm-up sweep, ending with a device
-sync). ``wcloseness`` needs the analytics layer, which is not ported.
+(k * (m // 2) for ``wcloseness``) over the wall time (after one warm-up
+call, ending with a device sync).
 
   python -m repro_torch.benchmarks.sssp_teps --scale 20
 
@@ -20,28 +21,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
-import torch
 
+from repro_torch.analytics import LaneEngine, weighted_closeness_centrality
+from repro_torch.benchmarks.timing import timed
 from repro_torch.core.csr import from_weighted_edges
 from repro_torch.device import device_name, resolve_device
 from repro_torch.graph.generator import rmat_weighted_graph, sample_roots
 from repro_torch.traversal.sssp import sssp_pipelined
-
-
-def _timed(fn, device):
-    """(wall seconds, result) of ``fn`` after one warm-up call; the time
-    ends with a device sync."""
-    fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    out = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter() - t0, out
 
 
 def unit_weight_graph(wg):
@@ -53,8 +41,9 @@ def unit_weight_graph(wg):
 
 
 def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
-                 sources: int = 32, lanes: int = 32, device=None,
-                 graph=None, unit=None) -> dict[str, dict]:
+                 sources: int = 32, lanes: int = 32,
+                 closeness_sources: int = 32, device=None, graph=None,
+                 unit=None) -> dict[str, dict]:
     """{point: {"teps", "seconds", "sources"}} at one scale. ``graph`` (the
     weighted R-MAT graph of these arguments) and ``unit`` (its
     ``unit_weight_graph``) skip building them."""
@@ -64,14 +53,20 @@ def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
     roots = sample_roots(wg, sources, seed=1)
     r = len(roots)
     points = {}
-    dt, _ = _timed(lambda: sssp_pipelined(wg, roots, lanes=lanes), dev)
+    dt, _ = timed(lambda: sssp_pipelined(wg, roots, lanes=lanes), dev)
     points[f"pipelined_s{scale}_R{r}"] = dict(
         teps=r * (wg.m // 2) / dt, seconds=dt, sources=r)
     unit = unit_weight_graph(wg) if unit is None else unit
-    dt, _ = _timed(lambda: sssp_pipelined(unit, roots, delta=1.0,
-                                          lanes=lanes), dev)
+    dt, _ = timed(lambda: sssp_pipelined(unit, roots, delta=1.0,
+                                         lanes=lanes), dev)
     points[f"unitweight_s{scale}_R{r}"] = dict(
         teps=r * (unit.m // 2) / dt, seconds=dt, sources=r)
+    k = min(closeness_sources, wg.n)
+    eng = LaneEngine(wg, lanes=lanes)
+    dt, _ = timed(lambda: weighted_closeness_centrality(
+        eng, sources=k, seed=2, chunk=lanes), dev)
+    points[f"wcloseness_s{scale}_k{k}"] = dict(
+        teps=k * (wg.m // 2) / dt, seconds=dt, sources=k)
     return points
 
 
@@ -90,7 +85,7 @@ def main(argv=None):
     print(f"# SSSP TEPS-equivalent on {device_name(dev)}: scale={args.scale} "
           f"ef={args.edgefactor} sources={args.sources} lanes={args.lanes}")
     points = bench_points(args.scale, args.edgefactor, args.seed,
-                          args.sources, args.lanes, dev)
+                          args.sources, args.lanes, device=dev)
     for name, p in points.items():
         print(f"{name:28s} {p['teps'] / 1e6:10.2f} MTEPS-equiv  "
               f"({p['seconds']:.4f} s)", flush=True)

@@ -19,7 +19,9 @@ from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
                                          uniform_random_graph,
                                          uniform_random_weighted_graph)
 from repro_torch.graph.graph500 import run_graph500
-from repro_torch.benchmarks import sssp_teps
+from repro_torch.benchmarks import (analytics_bench, fig3_teps, sssp_teps,
+                                    table2_switching, table3_maxpos,
+                                    table4_counters)
 from repro_torch.configs.reduced import reduce_arch
 from repro_torch.data.pipeline import gnn_batch
 from repro_torch.launch import bfs as launch_bfs
@@ -64,7 +66,14 @@ def test_port_files_are_found():
             "launch/train.py", "kernels/ell_spmm/kernel.py",
             "kernels/ell_spmm/ref.py", "kernels/ell_spmm/ops.py",
             "kernels/spmm_residue/kernel.py", "kernels/spmm_residue/ref.py",
-            "kernels/spmm_residue/ops.py"} <= names
+            "kernels/spmm_residue/ops.py", "analytics/__init__.py",
+            "analytics/api.py", "analytics/closeness.py",
+            "analytics/components.py", "analytics/diameter.py",
+            "analytics/engine.py", "analytics/khop.py", "analytics/meta.py",
+            "analytics/weighted.py", "graph/sampler.py",
+            "benchmarks/table2_switching.py", "benchmarks/table3_maxpos.py",
+            "benchmarks/table4_counters.py", "benchmarks/fig3_teps.py",
+            "benchmarks/analytics_bench.py", "benchmarks/timing.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -126,6 +135,13 @@ def test_entry_points_raise_without_gpu(no_gpu):
                                   np.array([0]), np.array([1.0]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sssp_teps.main(["--scale", "6", "--sources", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analytics_bench.main(["--scale", "6"])
+    for script in (table2_switching, table3_maxpos, table4_counters):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(["--scale", "6"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fig3_teps.main(["--scales", "6", "--edgefactors", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_graph500(6, 4, num_roots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
