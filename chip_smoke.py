@@ -84,6 +84,19 @@ phase prints one JSON line:
            analytics_bench's closeness and khop points at the graph's
            scale and its components point at scale 16, and sssp_teps'
            wcloseness;
+  serve    the serving layer on the weighted graph: an AnalyticsService
+           (adaptive lanes, streaming read-outs, sweep recording into a
+           flight log, an SLO monitor) replays a 64-request synthetic trace
+           (bfs:4,khop:2,reach:1,closeness:1,sssp:1, bursts of 8 every 2
+           layers), then serves one khop envelope over its HTTP plane on
+           loopback; every answer against run_query on an offline
+           LaneEngine, a streamed answer, recorded against unrecorded
+           sweeps (64 roots, 32 sources: bit-equal results, traces rebuilt
+           from the records), the sweep doctor over the flight log (no
+           switch finding), the launches of msbfs_probe, segment_or,
+           semiring_relax and relax_fallback in that run; the per-layer
+           host ms split into engine step, read-out copy and answer
+           assembly, and the recorder's overhead;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
@@ -116,8 +129,10 @@ from repro_torch.analytics import (LaneEngine, bfs_depths,  # noqa: E402
                                    khop_neighborhood, reach_hops,
                                    sssp_distances,
                                    weighted_closeness_centrality)
-from repro_torch.analytics.api import (result_from_wire,  # noqa: E402
-                                       result_to_wire)
+from repro_torch.analytics.api import (AnalyticsAnswer,  # noqa: E402
+                                       AnalyticsRequest, KHopQuery,
+                                       result_from_wire, result_to_wire,
+                                       run_query)
 from repro_torch.analytics.closeness import select_sources  # noqa: E402
 from repro_torch.benchmarks import analytics_bench  # noqa: E402
 from repro_torch.benchmarks.fig3_teps import MODES as FIG3_MODES  # noqa: E402
@@ -179,11 +194,17 @@ from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
 from repro_torch.models.gnn.common import (ELL_K_MAX,  # noqa: E402
                                            build_adjacency)
 from repro_torch.models.gnn.gcn import gcn_loss  # noqa: E402
+from repro_torch.obs import (ObservabilityServer, SLOConfig,  # noqa: E402
+                             SweepRecorder, Telemetry, diagnose_log,
+                             records_from_jsonl)
 from repro_torch.optim.adamw import (adamw_update,  # noqa: E402
                                      clip_by_global_norm, init_opt_state)
+from repro_torch.serving import (DONE, AnalyticsService,  # noqa: E402
+                                 ServiceConfig, synthetic_trace)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.traversal.ref import to_numpy_weighted  # noqa: E402
-from repro_torch.traversal.sssp import (default_delta, phase_inputs,  # noqa: E402
+from repro_torch.traversal.sssp import (MAX_SSSP_TRACE,  # noqa: E402
+                                        default_delta, phase_inputs,
                                         plan_step, prepare_step,
                                         sssp_engine_enqueue, sssp_engine_idle,
                                         sssp_engine_init, sssp_engine_step,
@@ -250,6 +271,15 @@ COMPONENTS_SCALE = 16
 # integers below 2**53, so they agree to the last bit; this allows rounding
 # in the last place of the final division
 CLOSENESS_RTOL = 1e-12
+# the serve phase's trace: requests, mix, bursts of SERVE_BURST every
+# SERVE_EVERY layers; and its SLO targets (met when nothing is rejected)
+SERVE_REQUESTS = 64
+SERVE_MIX = "bfs:4,khop:2,reach:1,closeness:1,sssp:1"
+SERVE_BURST = 8
+SERVE_EVERY = 2
+SERVE_SLO = SLOConfig(p99_sojourn_layers=4096, max_queue_depth=1024,
+                      max_reject_rate=0.0)
+SERVE_KERNELS = BATCHED_KERNELS + SSSP_KERNELS
 
 
 class SmokeFailure(RuntimeError):
@@ -1869,6 +1899,248 @@ def run_analytics(wg, args, sssp_points):
                      if k.startswith("wcloseness")})
 
 
+def timed(obj, name, acc, key, sync=False):
+    """Wrap ``obj.name`` so that its seconds add up in ``acc[key]`` (ending
+    with a device sync when ``sync``)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    setattr(obj, name, wrapper)
+
+
+def same_answer(rid, got, early, want) -> None:
+    """Raises unless the service's answer ``got`` to request ``rid``
+    carries ``want``'s result (the offline run_query's): every field of
+    their wire but the metadata, which records the service's lanes and
+    layers; a khop answer streamed ``early`` holds its lane's depths as
+    they stood, so its depth column is compared inside the final band
+    (depth <= k) only."""
+    early_khop = early and got.meta.kind == "khop"
+    skip = {"meta"} | ({"depth"} if early_khop else set())
+    a, b = (result_to_wire(r)["fields"] for r in (got, want))
+    for key in a:
+        if key not in skip:
+            check(json.dumps(a[key]) == json.dumps(b[key]),
+                  f"{rid} ({got.meta.kind}): {key} differs from run_query's")
+    if early_khop:
+        def band(d):
+            return np.where((d >= 0) & (d <= got.k), d, -1)
+        check(np.array_equal(band(got.depth), band(want.depth)),
+              f"{rid}: streamed khop band differs")
+
+
+def http_json(url, payload=None):
+    """(status, decoded JSON or text) of one request to the loopback
+    HTTP plane; POSTs ``payload`` as JSON when given."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    try:
+        return code, json.loads(body)
+    except json.JSONDecodeError:
+        return code, body
+
+
+def serve_http(svc, root):
+    """The live plane: the worker thread and an ObservabilityServer on
+    loopback; health, readiness and metrics, then one khop envelope
+    submitted, polled and fetched. Returns (its request, decoded answer,
+    round-trip ms, the routes' status codes)."""
+    env = AnalyticsRequest(query=KHopQuery(sources=(root,), k=2),
+                           id="http-khop", tenant="http")
+    codes = {}
+    with svc, ObservabilityServer(svc, host="127.0.0.1", port=0) as srv:
+        for route in ("/healthz", "/readyz", "/metrics"):
+            codes[route], body = http_json(srv.url + route)
+        check("service_requests_total" in body,
+              "/metrics lacks the request counters")
+        t0 = time.perf_counter()
+        codes["/v1/submit"], body = http_json(srv.url + "/v1/submit",
+                                              env.to_wire())
+        check(body.get("status") == "QUEUED", f"/v1/submit: {body}")
+        deadline = time.monotonic() + 120
+        while http_json(f"{srv.url}/v1/poll/{env.id}")[1]["status"] != DONE:
+            check(time.monotonic() < deadline and svc.worker_alive(),
+                  f"the HTTP request did not finish: {svc.health()}")
+            time.sleep(0.002)
+        codes["/v1/result"], wire = http_json(
+            f"{srv.url}/v1/result/{env.id}")
+        round_trip_ms = (time.perf_counter() - t0) * 1e3
+    for route, code in codes.items():
+        check(code == 200, f"{route} answered {code}")
+    check(not svc.health()["alive"], "the worker outlived stop()")
+    return env, AnalyticsAnswer.from_wire(wire), round_trip_ms, codes
+
+
+def recorder_overhead(fn, check_traces, rounds=2):
+    """``fn(recorder)`` unrecorded and recorded in turns: the results must
+    be bit-equal and the traces rebuilt from the records must equal the
+    result's. Returns the wall ms of each run (ending in a device sync)
+    and the records of the last recorded run."""
+    ms = {"unrecorded": [], "recorded": []}
+    for _ in range(rounds):
+        out = {}
+        for key, rec in (("unrecorded", None),
+                         ("recorded", SweepRecorder(engine="smoke"))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[key] = fn(rec)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+        base, got = out["unrecorded"], out["recorded"]
+        for name, a, b in zip(base._fields, got, base):
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b),
+                  f"recorded sweep: {name} differs from the unrecorded one")
+        check_traces(rec, base)
+    return dict(ms, overhead_ms=[r - u for r, u in zip(ms["recorded"],
+                                                      ms["unrecorded"])],
+                layers=rec.num_layers)
+
+
+def traces_equal(max_trace, names):
+    """A ``recorder_overhead`` check: the engine traces ``names`` rebuilt
+    from the records equal the result's."""
+    def check_traces(rec, res):
+        tr = rec.reconstruct_traces(max_trace,
+                                    getattr(res, names[0]).shape[1])
+        for name in names:
+            check(np.array_equal(tr[name], getattr(res, name).cpu().numpy()),
+                  f"{name} rebuilt from the records differs")
+    return check_traces
+
+
+def run_serve(wg, args):
+    """The serving layer on the weighted graph: replay, HTTP plane, the
+    answers against run_query, the recorders, the doctor. Returns the
+    launches of the replay and the HTTP request."""
+    g = wg.csr
+    out_dir = args.out or tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    os.makedirs(out_dir, exist_ok=True)
+    flight = os.path.join(out_dir, "serve_flight.jsonl")
+    if os.path.exists(flight):
+        os.remove(flight)
+    tel = Telemetry(record_sweeps=True, flight_path=flight)
+    svc = AnalyticsService(wg, ServiceConfig(lanes=0, telemetry=tel,
+                                             slo=SERVE_SLO))
+    trace = synthetic_trace(g.n, SERVE_REQUESTS, mix=SERVE_MIX,
+                            burst=SERVE_BURST, every=SERVE_EVERY, seed=SEED)
+    t0 = time.perf_counter()
+    svc.warmup()
+    warmup_s = time.perf_counter() - t0
+    acc = {}
+    for pool in (svc._pool("packed"), svc._pool("tropical")):
+        timed(pool, "step", acc, "step", sync=True)
+    timed(svc._packed, "readout", acc, "readout")
+    timed(svc, "_collect_packed", acc, "collect")
+    timed(svc, "_collect_tropical", acc, "collect")
+    torch.cuda.synchronize()
+    common.reset_launches()
+    stats = svc.replay(trace)
+    replay_layers = stats["layers"]
+    # the replay's split: the wrappers go on adding to the dict they hold
+    acc = dict(acc)
+    env, http_answer, round_trip_ms, codes = serve_http(
+        svc, int(sample_roots(g, 1, seed=SEED + 5)[0]))
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    tel.close()
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by the service")
+
+    # every answer against run_query on an offline engine
+    t0 = time.perf_counter()
+    eng = LaneEngine(wg)
+    check(stats["done"] == SERVE_REQUESTS and stats["rejected"] == 0,
+          f"served {stats['done']} of {SERVE_REQUESTS} requests")
+    early = {}
+    for req in trace:
+        rec = svc.record(req.id)
+        check(rec.status == DONE, f"{req.id} is {rec.status}")
+        same_answer(req.id, rec.answer.result, rec.answered_early,
+                    run_query(eng, req.query))
+        early[rec.kind] = early.get(rec.kind, 0) + rec.answered_early
+    check(early.get("khop", 0) + early.get("reach", 0) > 0,
+          "no khop or reach answer streamed before its lane flushed")
+    http_rec = svc.record(env.id)
+    check(http_answer.result.meta == http_rec.answer.meta,
+          "the HTTP answer's meta differs from the service's")
+    same_answer(env.id, http_answer.result, http_rec.answered_early,
+                run_query(eng, env.query))
+    offline_s = time.perf_counter() - t0
+
+    # recorded against unrecorded sweeps, as the engines' entry points run
+    roots = sample_roots(g, args.roots, seed=SEED + 1)
+    sources = sample_roots(wg, args.sources, seed=SEED + 1)
+    overhead = dict(
+        msbfs=recorder_overhead(
+            lambda rec: msbfs_pipelined(g, roots, "hybrid", lanes=LANES,
+                                        derive_parents=False, recorder=rec),
+            traces_equal(MAX_TRACE, ("trace_dir", "trace_vf", "trace_ef",
+                                     "trace_eu"))),
+        sssp=recorder_overhead(
+            lambda rec: sssp_pipelined(wg, sources, lanes=SSSP_LANES,
+                                       recorder=rec),
+            traces_equal(MAX_SSSP_TRACE, ("trace_bucket", "trace_phase"))))
+
+    # the sweep doctor over the flight log
+    records = records_from_jsonl(flight)
+    reports = diagnose_log(records, n=g.n, alpha=ALPHA_DEFAULT,
+                           beta=BETA_DEFAULT)
+    findings = {}
+    for r in reports:
+        for kind, count in r.counts().items():
+            findings[kind] = findings.get(kind, 0) + count
+    check(findings.get("mis_switch", 0) == 0,
+          f"the sweep doctor flags switch decisions: {findings}")
+    check(len(records) == sum(len(s.records) for s in tel.sweeps),
+          "the flight log lacks recorded layers")
+
+    per_layer = {key: acc.get(key, 0.0) * 1e3 / replay_layers
+                 for key in ("step", "readout")}
+    per_layer["answer"] = (acc.get("collect", 0.0)
+                           - acc.get("readout", 0.0)) * 1e3 / replay_layers
+    lanes = svc._packed.lanes
+    emit("serve", requests=stats["requests"], done=stats["done"],
+         rejected=stats["rejected"], layers=replay_layers,
+         wall_s=stats["wall_s"], warmup_s=warmup_s,
+         sojourn_layers=stats["sojourn_layers"],
+         answered_early=stats["answered_early"], early_by_kind=early,
+         mean_lane_occupancy=stats["mean_lane_occupancy"],
+         aggregate_mteps=stats["aggregate_mteps"],
+         sssp_steps=stats["sssp_steps"], delta=stats["delta"],
+         packed_lanes=lanes, packed_slots=svc._packed.slots,
+         tropical_lanes=svc._tropical.lanes,
+         per_layer_host_ms=per_layer,
+         host_s=dict(step=acc.get("step", 0.0),
+                     readout=acc.get("readout", 0.0),
+                     collect=acc.get("collect", 0.0)),
+         readout_bytes_per_layer=4 * g.n * (lanes + svc._packed.slots + 1),
+         recorder_overhead=overhead, flight_records=len(records),
+         flight_sweeps=len(reports), doctor_findings=findings,
+         http=dict(round_trip_ms=round_trip_ms, codes=codes,
+                   answered_early=http_rec.answered_early,
+                   sojourn=http_rec.sojourn),
+         slo=svc.slo.peek(), per_type=stats["per_type"], launches=launches,
+         offline_check_s=offline_s, flight_log=flight)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -1949,6 +2221,7 @@ def main(argv=None) -> int:
     figure_tables(g, args, states)
     figure3(g, args)
     run_analytics(wg, args, sssp_points)
+    serve_launches = run_serve(wg, args)
 
     kernels = []
     for name in KERNELS:
@@ -1976,6 +2249,8 @@ def main(argv=None) -> int:
         for key in ("forms", "layers"):
             if key in r:
                 per[key] = r[key]
+        if name in SERVE_KERNELS:
+            per["serve_launches"] = serve_launches[name]
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -13,9 +13,11 @@ Built from a ``WeightedCSRGraph`` the engine also serves weighted sweeps:
 same graph, for the ``SSSPQuery`` / ``WeightedClosenessQuery`` workloads.
 Boolean sweeps on a weighted engine ignore the weights.
 
-The reference's distributed knobs (``ndev > 1``, ``mesh``, ``grid``,
-``compress``) and its ``telemetry`` bundle raise ``NotImplementedError``
-until the distributed engines and the observability layer are ported.
+``telemetry`` (a ``repro_torch.obs.Telemetry`` bundle) records every sweep
+as a per-layer ``SweepRecorder`` stream; None keeps every sweep on the
+drain path. The reference's distributed knobs (``ndev > 1``, ``mesh``,
+``grid``, ``compress``) raise ``NotImplementedError`` until the
+distributed engines are ported.
 """
 from __future__ import annotations
 
@@ -45,12 +47,6 @@ def pad_roots(roots: np.ndarray, width: int) -> np.ndarray:
         [roots, np.full(width - roots.size, roots[0], np.int32)])
 
 
-def _not_ported(what: str, item: int, layer: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs {layer}, which is not ported yet (ROADMAP queue A "
-        f"item {item})")
-
-
 class LaneEngine:
     """MS-BFS (and SSSP) sweep runner shared by all analytics, on the
     graph's device."""
@@ -63,14 +59,17 @@ class LaneEngine:
                  probe_impl: str = "xla", telemetry=None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if telemetry is not None:
-            raise _not_ported("telemetry=", 8, "the observability layer")
+        # a repro_torch.obs.Telemetry bundle; None (the default) keeps every
+        # sweep on the recorder-off drain path
+        self.telemetry = telemetry
         for name, value in (("ndev > 1", int(ndev) > 1),
                             ("mesh=", mesh is not None),
                             ("grid=", grid is not None),
                             ("compress=True", compress)):
             if value:
-                raise _not_ported(name, 9, "the distributed engines")
+                raise NotImplementedError(
+                    f"{name} needs the distributed engines, which are not "
+                    f"ported yet (ROADMAP queue A item 9)")
         self.wg = g if isinstance(g, WeightedCSRGraph) else None
         self.g = g.csr if self.wg is not None else g
         self.lanes = lanes
@@ -101,6 +100,14 @@ class LaneEngine:
             return self.lanes
         return adaptive_lane_pool(num_roots, self.n, self.m)
 
+    def _recorder(self, engine_name: str, **meta):
+        """A fresh per-sweep ``SweepRecorder`` from the telemetry bundle
+        (None when telemetry is absent or sweep recording is off — the
+        drivers then take their drain path)."""
+        if self.telemetry is None:
+            return None
+        return self.telemetry.recorder(engine_name, ndev=self.ndev, **meta)
+
     def sweep(self, roots, derive_parents: bool = False) -> MSBFSResult:
         """One pipelined engine sweep; ``depth`` is [n, R] on the graph's
         device. By default ``parent`` is zero-width: every analytics
@@ -114,7 +121,8 @@ class LaneEngine:
                                alpha=self.alpha, beta=self.beta,
                                max_pos=self.max_pos,
                                lanes=self.lanes_for(roots.size),
-                               derive_parents=derive_parents)
+                               derive_parents=derive_parents,
+                               recorder=self._recorder("msbfs"))
 
     @property
     def weighted(self) -> bool:
@@ -145,7 +153,8 @@ class LaneEngine:
         return sssp_pipelined(self.wg, roots, delta=delta,
                               lanes=self.sssp_lanes_for(roots.size),
                               max_pos=self.max_pos,
-                              relax_impl=self.probe_impl)
+                              relax_impl=self.probe_impl,
+                              recorder=self._recorder("sssp"))
 
 
 def as_engine(g_or_engine, **kwargs) -> LaneEngine:

@@ -617,12 +617,13 @@ def msbfs_pipelined(g: CSRGraph, roots, mode: str = "hybrid",
     Roots beyond the ``lanes`` pool wait in the queue and refill lanes as
     traversals finish, with no batch barrier. With R <= lanes the pool
     shrinks to ceil32(R) lanes and this gives the single-batch ``msbfs``
-    results. ``recorder`` (the reference's per-layer flight recorder) needs
-    the observability layer, which is not ported."""
-    if recorder is not None:
-        raise NotImplementedError(
-            "recorder= needs the observability layer, which is not ported "
-            "yet (ROADMAP queue A item 8)")
+    results.
+
+    ``recorder`` (a ``repro_torch.obs.SweepRecorder``) steps the engine
+    through ``obs.sweeplog.drive_recorded`` and records a ``LayerRecord``
+    per layer; the step and the drain share ``_pipeline_body``, so results
+    and traces are bit-identical either way. With ``recorder=None`` (the
+    default) nothing of ``repro_torch.obs`` is imported or run."""
     _check_mode(mode)
     roots = _as_roots(roots)
     num_roots = roots.shape[0]
@@ -631,5 +632,12 @@ def msbfs_pipelined(g: CSRGraph, roots, mode: str = "hybrid",
     lanes = max(1, min(lanes, LANE_WORD_BITS * num_lane_words(num_roots)))
     state = msbfs_engine_init(g, capacity=num_roots, lanes=lanes)
     state = msbfs_engine_enqueue(state, roots)
-    state = msbfs_engine_drain(g, state, mode, alpha, beta, max_pos)
+    if recorder is None:
+        state = msbfs_engine_drain(g, state, mode, alpha, beta, max_pos)
+    else:
+        from repro_torch.obs.sweeplog import drive_recorded
+        state = drive_recorded(
+            recorder, state,
+            lambda s: msbfs_engine_step(g, s, mode, alpha, beta, max_pos),
+            msbfs_engine_idle, kind="bfs")
     return msbfs_engine_result(g, state, derive_parents=derive_parents)

@@ -510,13 +510,12 @@ def sssp_pipelined(wg: WeightedCSRGraph, roots, delta=None,
     Sources beyond the lane pool wait in the queue and stream into lanes as
     they free up. ``delta=None`` picks ``default_delta(wg)``; a per-lane
     tuple (length = the effective lane count, ``min(lanes, sources)``)
-    gives each lane its own bucket width. ``recorder`` (the reference's
-    per-step flight recorder) needs the observability layer, which is not
-    ported."""
-    if recorder is not None:
-        raise NotImplementedError(
-            "recorder= needs the observability layer, which is not ported "
-            "yet (ROADMAP queue A item 8)")
+    gives each lane its own bucket width.
+
+    ``recorder`` (a ``repro_torch.obs.SweepRecorder``) records a
+    ``LayerRecord`` per engine step by stepping instead of the drain (the
+    shared ``_sssp_body``: distances, steps and traces bit-identical);
+    None (the default) touches nothing in ``repro_torch.obs``."""
     roots = _as_roots(roots)
     num_roots = roots.shape[0]
     if num_roots < 1:
@@ -527,6 +526,14 @@ def sssp_pipelined(wg: WeightedCSRGraph, roots, delta=None,
     delta = delta if isinstance(delta, tuple) else float(delta)
     state = sssp_engine_init(wg, capacity=num_roots, lanes=lanes)
     state = sssp_engine_enqueue(state, roots)
-    state = sssp_engine_drain(wg, state, delta, max_pos, relax_impl,
-                              max_steps)
+    if recorder is None:
+        state = sssp_engine_drain(wg, state, delta, max_pos, relax_impl,
+                                  max_steps)
+    else:
+        from repro_torch.obs.sweeplog import drive_recorded
+        state = drive_recorded(
+            recorder, state,
+            lambda s: sssp_engine_step(wg, s, delta, max_pos, relax_impl,
+                                       max_steps),
+            sssp_engine_idle, kind="sssp")
     return sssp_engine_result(state)

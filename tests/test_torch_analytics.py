@@ -24,6 +24,7 @@ from repro.analytics import khop as jkhop
 from repro.core.csr import from_weighted_edges as jfrom_weighted_edges
 from repro.graph.generator import rmat_weighted_graph as jrmat_weighted
 from repro.graph.sampler import khop_node_sets as jkhop_node_sets
+from repro.obs import Telemetry as JTelemetry
 from repro_torch import analytics as ta
 from repro_torch.analytics import api as tapi
 from repro_torch.analytics import engine as tengine
@@ -32,6 +33,7 @@ from repro_torch.benchmarks import analytics_bench
 from repro_torch.core.csr import from_numpy_graph, from_numpy_weighted_graph
 from repro_torch.core.packed import depth_slice_words
 from repro_torch.graph.sampler import khop_node_sets
+from repro_torch.obs import Telemetry as TTelemetry
 
 PINNED_LANES = 64
 
@@ -200,11 +202,41 @@ def test_as_engine_refuses_overrides(graphs):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(ndev=2), 9), (dict(mesh=object()), 9), (dict(grid=(2, 1)), 9),
-    (dict(compress=True), 9), (dict(telemetry=object()), 8)])
+    (dict(compress=True), 9)])
 def test_unported_engine_knobs_raise(graphs, kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue A item {item}"):
         ta.LaneEngine(graphs["path"].g, **kwargs)
+
+
+def test_telemetry_records_one_sweep_per_query(graphs):
+    """``LaneEngine(telemetry=)``: every sweep of a query is recorded, as
+    the reference's engine records it (every ``LayerRecord`` field but
+    ``wall_ms``), and the answers equal an unrecorded engine's."""
+    case = graphs["rmat"]
+    queries = [("khop", dict(sources=(3, 9, 15, 0), k=2)),
+               ("sssp", dict(sources=(3, 9, 15, 0)))]
+    recorded = {}
+    for api, eng_cls, tel in ((ta, ta.LaneEngine, TTelemetry()),
+                              (ja, ja.LaneEngine, JTelemetry())):
+        eng = eng_cls(case.jg if api is ja else case.g, telemetry=tel)
+        wires = [wire_json(tapi if api is ta else japi,
+                           api.run_query(eng, api.QUERY_KINDS[k](**a)))
+                 for k, a in queries]
+        recorded[api] = (wires, tel)
+    wires, tel = recorded[ta]
+    assert [r.engine for r in tel.sweeps] == ["msbfs", "sssp"]
+    assert all(r.meta == {"ndev": 1} and r.num_layers > 0 for r in tel.sweeps)
+    plain = ta.LaneEngine(case.g)
+    assert wires == [wire_json(tapi, ta.run_query(plain, ta.QUERY_KINDS[k](
+        **a))) for k, a in queries]
+    jwires, jtel = recorded[ja]
+    assert wires == jwires
+
+    def fields(t):
+        return [[{k: v for k, v in r.as_dict().items() if k != "wall_ms"}
+                 for r in s.records] for s in t.sweeps]
+    assert fields(tel) == fields(jtel)
 
 
 def test_weighted_query_on_unweighted_engine_raises(graphs):

@@ -25,6 +25,7 @@ from repro_torch.benchmarks import (analytics_bench, fig3_teps, sssp_teps,
 from repro_torch.configs.reduced import reduce_arch
 from repro_torch.data.pipeline import gnn_batch
 from repro_torch.launch import bfs as launch_bfs
+from repro_torch.launch import serve_bfs as launch_serve_bfs
 from repro_torch.launch import train as launch_train
 from repro_torch.models.gnn.gcn import gcn_params_from_numpy
 from repro_torch.train.trainer import Trainer
@@ -73,7 +74,12 @@ def test_port_files_are_found():
             "analytics/weighted.py", "graph/sampler.py",
             "benchmarks/table2_switching.py", "benchmarks/table3_maxpos.py",
             "benchmarks/table4_counters.py", "benchmarks/fig3_teps.py",
-            "benchmarks/analytics_bench.py", "benchmarks/timing.py"} <= names
+            "benchmarks/analytics_bench.py", "benchmarks/timing.py",
+            "obs/__init__.py", "obs/metrics.py", "obs/sweeplog.py",
+            "obs/traceviz.py", "obs/slo.py", "obs/doctor.py",
+            "obs/server.py", "serving/__init__.py", "serving/stats.py",
+            "serving/admission.py", "serving/trace.py",
+            "serving/service.py", "launch/serve_bfs.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -146,6 +152,8 @@ def test_entry_points_raise_without_gpu(no_gpu):
         run_graph500(6, 4, num_roots=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_bfs.main(["--scale", "6", "--roots", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve_bfs.main(["--scale", "6", "--queries", "2"])
 
 
 def test_training_entry_points_raise_without_gpu(no_gpu):

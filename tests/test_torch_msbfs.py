@@ -25,6 +25,7 @@ from repro_torch.core.packed import adaptive_lane_pool
 from repro_torch.core.ref import bfs_reference
 from repro_torch.graph.graph500 import run_graph500
 from repro_torch.graph.validate import validate_bfs_tree
+from repro_torch.obs import SweepRecorder
 
 FIELDS = ms.MSBFSResult._fields
 
@@ -243,8 +244,13 @@ def test_engine_guards(case):
         ms.msbfs_pipelined(g, np.zeros(2, np.int32), "sideways")
     with pytest.raises(ValueError, match="at least one root"):
         ms.msbfs_pipelined(g, np.zeros(0, np.int32))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ms.msbfs_pipelined(g, np.zeros(2, np.int32), recorder=object())
+    # recorder= (lifted with the observability layer): the recorded sweep
+    # steps the same engine, so its results equal the drain's
+    rec = SweepRecorder(engine="msbfs")
+    roots = case.roots[:12]
+    assert_results_same(ms.msbfs_pipelined(g, roots, lanes=4, recorder=rec),
+                        ms.msbfs_pipelined(g, roots, lanes=4), "recorded")
+    assert rec.num_layers > 0 and rec.kind == "bfs"
     fresh = ms.msbfs_engine_result(g, ms.msbfs_engine_init(g, 4, 2))
     assert fresh.parent.shape == (g.n, 0) and fresh.num_layers.shape == (0,)
 

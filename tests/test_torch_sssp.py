@@ -21,6 +21,7 @@ from repro.graph import generator as jgen
 from repro.traversal import sssp as jsssp
 from repro_torch.core.csr import from_numpy_weighted_graph, from_weighted_edges
 from repro_torch.core.msbfs import msbfs_pipelined
+from repro_torch.obs import SweepRecorder
 from repro_torch.traversal import sssp as ss
 from repro_torch.traversal.ref import dijkstra_reference, to_numpy_weighted
 
@@ -223,8 +224,13 @@ def test_bad_arguments_raise(case):
         ss.sssp_pipelined(g, [])
     with pytest.raises(ValueError, match="queue overflow"):
         ss.sssp_engine_enqueue(ss.sssp_engine_init(g, 1), [0, 1])
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        ss.sssp_pipelined(g, [0], recorder=object())
+    # recorder= (lifted with the observability layer): the recorded sweep
+    # steps the same engine, so its results equal the drain's
+    rec = SweepRecorder(engine="sssp")
+    roots = case.roots["rmat"][:5]
+    assert_results_equal(ss.sssp_pipelined(g, roots, lanes=2, recorder=rec),
+                         ss.sssp_pipelined(g, roots, lanes=2), "recorded")
+    assert rec.num_layers > 0 and rec.kind == "sssp"
 
 
 def test_unit_weight_anchor_matches_msbfs(case):
