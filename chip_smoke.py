@@ -80,7 +80,9 @@ phase prints one JSON line:
            msbfs_pipelined and the serial bfs (one against the numpy
            oracle), closeness of 8 vertices and the diameter bounds against
            the serial bfs, components against scipy, 4 SSSP lanes against
-           Dijkstra, every result through the wire codec; then
+           Dijkstra, weighted closeness against its sources swept again
+           (bit-equal) and 2 of their lanes against Dijkstra, every result
+           through the wire codec; then
            analytics_bench's closeness and khop points at the graph's
            scale and its components point at scale 16, and sssp_teps'
            wcloseness;
@@ -97,16 +99,46 @@ phase prints one JSON line:
            semiring_relax and relax_fallback in that run; the per-layer
            host ms split into engine step, read-out copy and answer
            assembly, and the recorder's overhead;
+  hillclimb       the paper's hillclimb (repro_torch.benchmarks.
+           bfs_hillclimb: the B0-B3 mode ladder, O1 without the empty-
+           residue skip, the O2 MAX_POS and O3 alpha/beta sweeps, O4's ELL
+           top-down) on the graph, 16 roots, 3 repeats in turns: harmonic-
+           mean TEPS per point (median and spread), and the O2/O3 points
+           whose hybrid beats pure top-down;
+  serve_bench     serve_bench's streamed-against-flushed replay of a
+           64-request trace of the serve phase's mix at the graph's scale,
+           with its own asserts (streamed answers bit-equal to flushed
+           ones, a mean khop gain of at least one layer), and its points;
+  u64      the port at 64-bit lane words: the same sweeps (run_graph500
+           batched=True at --roots and 4x as many roots), a 64-source khop
+           and one streamed replay of the serve phase's trace, run here at
+           32-bit words and then by this script again in a child process
+           with LANE_WORD_BITS=64 (--u64-child; its lines are relayed:
+           u64_graph, u64_kernel, u64_ok). The child first holds
+           msbfs_probe and both forms of segment_or on random int64 words
+           (W = 1, 2, 3, through their int32 view) against their plain
+           versions and times them in turns beside the same wrappers on
+           the same bits as int32 words; its sweeps, khop and replay must
+           launch both kernels. sha256 digests of every sweep's parent,
+           depth, num_layers, edges_traversed and traces, of the khop
+           membership and of every replay answer's result must equal the
+           32-bit run's; sweep wall and TEPS, the replay's pool lanes,
+           wall, read-out copy ms a packed layer and host split at both
+           widths;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
-           the in-path sums over the layers that ran it, where timed).
+           the in-path sums over the layers that ran it, where timed;
+           msbfs_probe's and segment_or's u64 record from the child).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
-repository's src/.
+repository's src/, or a u64 child that fails or outlives its time limit
+(it is killed then).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -133,8 +165,12 @@ from repro_torch.analytics.api import (AnalyticsAnswer,  # noqa: E402
                                        AnalyticsRequest, KHopQuery,
                                        result_from_wire, result_to_wire,
                                        run_query)
-from repro_torch.analytics.closeness import select_sources  # noqa: E402
-from repro_torch.benchmarks import analytics_bench  # noqa: E402
+from repro_torch.analytics.closeness import (  # noqa: E402
+    closeness_from_dists, select_sources)
+from repro_torch.analytics.engine import pad_roots  # noqa: E402
+from repro_torch.analytics.khop import KHopResult  # noqa: E402
+from repro_torch.benchmarks import (analytics_bench,  # noqa: E402
+                                    bfs_hillclimb, serve_bench)
 from repro_torch.benchmarks.fig3_teps import MODES as FIG3_MODES  # noqa: E402
 from repro_torch.benchmarks.fig3_teps import teps_point  # noqa: E402
 from repro_torch.benchmarks.sssp_teps import (bench_points,  # noqa: E402
@@ -156,8 +192,9 @@ from repro_torch.core.msbfs import (_derive_parents, _plan, _refill,  # noqa: E4
                                     msbfs_engine_enqueue, msbfs_engine_idle,
                                     msbfs_engine_init, msbfs_engine_result,
                                     msbfs_engine_step, msbfs_pipelined)
-from repro_torch.core.packed import (lane_counters, pack_lanes_np,  # noqa: E402
-                                     unpack_lanes)
+from repro_torch.core.packed import (LANE_WORD_BITS,  # noqa: E402
+                                     lane_counters, pack_lanes_np,
+                                     unpack_lanes, word_dtype)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
 from repro_torch.data.pipeline import gnn_batch  # noqa: E402
@@ -175,6 +212,7 @@ from repro_torch.kernels.ell_spmm.ops import (spmm_aggregate,  # noqa: E402
                                               spmm_aggregate_ref)
 from repro_torch.kernels.ell_spmm.ref import ell_spmm_ref  # noqa: E402
 from repro_torch.kernels.msbfs_probe.kernel import msbfs_probe_cuda  # noqa: E402
+from repro_torch.kernels.msbfs_probe.ops import msbfs_probe  # noqa: E402
 from repro_torch.kernels.msbfs_probe.ref import (  # noqa: E402
     msbfs_probe_ref, probe_rounds as lane_probe_rounds)
 from repro_torch.kernels.relax_fallback.kernel import (  # noqa: E402
@@ -182,6 +220,7 @@ from repro_torch.kernels.relax_fallback.kernel import (  # noqa: E402
 from repro_torch.kernels.relax_fallback.ref import relax_fallback_ref  # noqa: E402
 from repro_torch.kernels.segment_or.kernel import (  # noqa: E402
     segment_or_rows_cuda)
+from repro_torch.kernels.segment_or.ops import segment_or_rows  # noqa: E402
 from repro_torch.kernels.segment_or.ref import segment_or_rows_ref  # noqa: E402
 from repro_torch.kernels.semiring_relax.kernel import (  # noqa: E402
     semiring_relax_cuda)
@@ -280,6 +319,15 @@ SERVE_EVERY = 2
 SERVE_SLO = SLOConfig(p99_sojourn_layers=4096, max_queue_depth=1024,
                       max_reject_rate=0.0)
 SERVE_KERNELS = BATCHED_KERNELS + SSSP_KERNELS
+# weighted closeness: lanes of its sweep held against scipy's Dijkstra
+WCLOSENESS_DIJKSTRA_LANES = 2
+# the hillclimb's roots and repeats (in turns, as Fig. 3's)
+HILLCLIMB_ROOTS = 16
+HILLCLIMB_REPEATS = 3
+# the u64 phase: 64-bit word widths of the random kernel inputs, and the
+# child's time limit
+U64_WIDTHS = (1, 2, 3)
+U64_CHILD_TIMEOUT = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -1865,6 +1913,7 @@ def run_analytics(wg, args, sssp_points):
     count = same_partition(comps.labels, g_cc)
     check(count == comps.num_components, "component counts differ")
     err = dijkstra_check(wg, sources, torch.from_numpy(res["sssp"].dist))
+    wcloseness = wcloseness_check(eng, wg, res["wcloseness"])
     split = dict(
         khop=sweep_split(eng.sweep, roots, "depth"),
         closeness=sweep_split(eng.sweep, select_sources(g.n, "auto", SEED)[0],
@@ -1881,7 +1930,8 @@ def run_analytics(wg, args, sssp_points):
                          matches_scipy=True),
          depth_columns_match_msbfs=True, independent=independent,
          dijkstra_lanes=4,
-         dijkstra_max_abs_err=err, sweep_split=split, wire_bytes=wire_bytes,
+         dijkstra_max_abs_err=err, wcloseness_dijkstra=wcloseness,
+         sweep_split=split, wire_bytes=wire_bytes,
          diameter=dict(lower=res["diameter"].lower,
                        upper=res["diameter"].upper),
          closeness_top=res["closeness"].top(3))
@@ -2141,6 +2191,337 @@ def run_serve(wg, args):
     return launches
 
 
+def wcloseness_check(eng, wg, res) -> dict:
+    """Weighted closeness against Dijkstra: the query's sources swept
+    again at its delta in its one chunk; the closeness of that sweep's
+    distances must equal the answer's bit for bit, and its first
+    WCLOSENESS_DIJKSTRA_LANES lanes scipy's Dijkstra (dijkstra_check)."""
+    t0 = time.perf_counter()
+    src = select_sources(eng.n, WEIGHTED_SOURCES, SEED)[0]
+    chunk = res.meta.extra["chunk"]
+    check(src.size == res.num_sources == chunk,
+          f"weighted closeness ran {res.num_sources} sources in chunks of "
+          f"{chunk}, not one sweep of {src.size}")
+    dist = eng.sssp_sweep(pad_roots(src, chunk),
+                          delta=res.meta.extra["delta"]).dist[:, :src.size]
+    check(np.array_equal(closeness_from_dists(dist.cpu().numpy(), eng.n),
+                         res.closeness),
+          "weighted closeness differs from its sources' distances")
+    err = dijkstra_check(wg, src, dist, WCLOSENESS_DIJKSTRA_LANES)
+    return dict(lanes=WCLOSENESS_DIJKSTRA_LANES, max_abs_err=err,
+                seconds=time.perf_counter() - t0)
+
+
+def run_hillclimb(g, args):
+    """A4b: every point of bfs_hillclimb (the B0-B3 ladder, O1, the O2
+    MAX_POS and O3 alpha/beta sweeps, O4) on the graph through the serial
+    harness, HILLCLIMB_ROOTS roots, HILLCLIMB_REPEATS times in turns;
+    harmonic-mean TEPS per point (median and spread), and which O2/O3
+    points put the hybrid above pure top-down."""
+    points = bfs_hillclimb.points()
+    teps = {label: [] for _, _, label, _ in points}
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(HILLCLIMB_REPEATS):
+        for _, _, label, knobs in points:
+            teps[label].append(run_graph500(
+                args.scale, EDGEFACTOR, num_roots=HILLCLIMB_ROOTS, seed=SEED,
+                graph=g, **knobs).harmonic_mean_teps)
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    check(launches["bottom_up_probe"] > 0 and launches["topdown_scan"] > 0,
+          f"the hillclimb launched {launches}")
+    for label, values in teps.items():
+        check(all(v > 0 for v in values), f"hillclimb {label}: 0 TEPS")
+    topdown = statistics.median(teps["B0_topdown"])
+    above = [label for label, v in teps.items()
+             if label.startswith(("O2", "O3"))
+             and statistics.median(v) > topdown]
+    emit("hillclimb", scale=args.scale, edgefactor=EDGEFACTOR,
+         roots=HILLCLIMB_ROOTS, repeats=HILLCLIMB_REPEATS, seconds=seconds,
+         launches=launches,
+         harmonic_mean_teps={k: spread(v) for k, v in teps.items()},
+         topdown_median_teps=topdown, o2_o3_above_topdown=above,
+         hybrid_above_topdown=bool(above))
+
+
+def run_serve_bench(wg, args):
+    """A8b: serve_bench's streamed-against-flushed replay on the weighted
+    graph with the serve phase's mix and request count, with its own
+    asserts (bit parity of the streamed answers, a khop gain >= 1 layer),
+    and the launches of the two replays."""
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    points = serve_bench.bench_points(args.scale, EDGEFACTOR, SEED,
+                                      queries=SERVE_REQUESTS, mix=SERVE_MIX,
+                                      graph=wg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by serve_bench")
+    emit("serve_bench", scale=args.scale, queries=SERVE_REQUESTS,
+         mix=SERVE_MIX, points=points, seconds=seconds, launches=launches)
+
+
+def digest(*arrays) -> str:
+    """sha256 over the arrays' dtypes, shapes and bytes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def answer_digest(res) -> str:
+    """sha256 of an answer's result fields, not its meta: a khop answer by
+    its unpacked membership (its words are laid out by the word width)
+    and its depth inside the final band (a streamed answer's deeper
+    depths are its lane's as they stood)."""
+    parts = []
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        if f.name == "meta":
+            continue
+        if isinstance(res, KHopResult) and f.name == "words":
+            v = res.member_mask()
+        elif isinstance(res, KHopResult) and f.name == "depth":
+            v = np.where((v >= 0) & (v <= res.k), v, -1)
+        parts.append(v if isinstance(v, np.ndarray) else np.asarray(repr(v)))
+    return digest(*parts)
+
+
+def width_run(wg, args):
+    """The u64 phase's work, at this process's word width: the batched
+    sweep through run_graph500 at --roots and 4x as many roots (64 lanes)
+    with the same roots' msbfs_pipelined results, a 64-source khop (k = 2)
+    on LaneEngine(lanes=None), and one streamed replay of the serve
+    phase's trace on AnalyticsService(lanes=0). Returns (digests,
+    numbers); the results do not depend on the word width, so the
+    digests must be the same at 32 and 64 bits."""
+    g = wg.csr
+    digests = {}
+    numbers = dict(word_bits=LANE_WORD_BITS, word_dtype=str(word_dtype()))
+    for num in (args.roots, 4 * args.roots):
+        res = run_graph500(args.scale, EDGEFACTOR, mode="hybrid",
+                           num_roots=num, seed=SEED, graph=g, batched=True,
+                           lanes=LANES)
+        out = msbfs_pipelined(g, sample_roots(g, num, seed=SEED + 1),
+                              "hybrid", lanes=LANES)
+        digests[f"sweep_{num}"] = dict(
+            {name: digest(getattr(out, name)) for name in
+             ("parent", "depth", "num_layers", "edges_traversed")},
+            traces=digest(out.trace_dir, out.trace_vf, out.trace_ef,
+                          out.trace_eu))
+        numbers[f"sweep_{num}"] = dict(
+            lanes=res.lanes, sweep_seconds=res.times[0],
+            aggregate_teps=res.aggregate_teps)
+        del out
+    eng = LaneEngine(wg, lanes=None)
+    roots = sample_roots(g, KHOP_SOURCES, seed=SEED + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    khop = khop_neighborhood(eng, roots, 2)
+    numbers["khop"] = dict(seconds=time.perf_counter() - t0,
+                           lanes=khop.meta.lanes,
+                           words=[str(khop.words.dtype),
+                                  list(khop.words.shape)])
+    digests["khop_members"] = digest(khop.member_mask())
+    del khop
+
+    svc = AnalyticsService(wg, ServiceConfig(lanes=0))
+    trace = synthetic_trace(g.n, SERVE_REQUESTS, mix=SERVE_MIX,
+                            burst=SERVE_BURST, every=SERVE_EVERY, seed=SEED)
+    svc.warmup()
+    # the replay's host time split as the serve phase splits it, and the
+    # packed layers counted by their read-outs
+    acc = {}
+    for pool in (svc._pool("packed"), svc._pool("tropical")):
+        timed(pool, "step", acc, "step", sync=True)
+    timed(svc, "_collect_packed", acc, "collect")
+    timed(svc, "_collect_tropical", acc, "collect")
+    copy = dict(seconds=0.0, calls=0)
+    readout = svc._packed.readout
+
+    def timed_readout():
+        t = time.perf_counter()
+        out = readout()
+        copy["seconds"] += time.perf_counter() - t
+        copy["calls"] += 1
+        return out
+    svc._packed.readout = timed_readout
+    stats = svc.replay(trace)
+    check(stats["done"] == SERVE_REQUESTS,
+          f"the replay answered {stats['done']} of {SERVE_REQUESTS}")
+    digests["replay"] = [answer_digest(svc.record(r.id).answer.result)
+                         for r in trace]
+    lanes = svc._packed.lanes
+    numbers["replay"] = dict(
+        packed_lanes=lanes, wall_s=stats["wall_s"], layers=stats["layers"],
+        answered_early=stats["answered_early"],
+        readout_calls=copy["calls"], readout_s=copy["seconds"],
+        readout_ms_per_packed_layer=copy["seconds"] * 1e3
+        / max(copy["calls"], 1),
+        readout_bytes_per_layer=4 * g.n * (lanes + svc._packed.slots + 1),
+        host_s=dict(step=acc.get("step", 0.0),
+                    answers=acc.get("collect", 0.0) - copy["seconds"]))
+    return digests, numbers
+
+
+def in_turns(fn_a, fn_b, reps, flush):
+    """``time_ms`` of two functions in turns (a, b, b, a): two times
+    each."""
+    a1, b1 = time_ms(fn_a, reps, flush), time_ms(fn_b, reps, flush)
+    b2, a2 = time_ms(fn_b, reps, flush), time_ms(fn_a, reps, flush)
+    return [a1, a2], [b1, b2]
+
+
+def u64_kernels(g, reps, flush) -> dict:
+    """B3 and both forms of X1 on seeded random int64 words at W = 1, 2, 3
+    through the ops wrappers, which hand the kernels the words' int32
+    view: each bit-equal to its plain version on that view, and timed in
+    turns (int64, int32, int32, int64) beside the same wrapper on the same
+    bits as 2W int32 words, as a 32-bit engine would call it. The bound is
+    the 32-bit one at 2W planes."""
+    n, m, dev = g.n, g.m, g.device
+    rec = {name: dict(cases=0, max_abs_err=0, widths={})
+           for name in BATCHED_KERNELS}
+
+    def agree(name, label, got, want):
+        err = max_abs_err([(got.view(torch.int32), want)])
+        check(err == 0 and torch.equal(got.view(torch.int32), want),
+              f"{name} on int64 words differs from its plain version on "
+              f"the int32 view ({label})")
+        rec[name]["cases"] += 1
+
+    for w in U64_WIDTHS:
+        fro32, vis32 = random_lanes(n, 2 * w, SEED + 100 + w, dev)
+        need32 = ~vis32
+        fro, need = fro32.view(torch.int64), need32.view(torch.int64)
+        pa = (g.row_ptr[:-1], g.deg, need32, g.col_idx, fro32, MAX_POS)
+        acc = msbfs_probe(g.row_ptr, g.col_idx, fro, need, MAX_POS)
+        agree("msbfs_probe", f"W={w}", acc, msbfs_probe_ref(*pa))
+        found = acc & need
+        residue = ((need & ~found) != 0).any(dim=-1) & (g.deg > MAX_POS)
+        fb = dict(mask=need, base=found, row_active=residue, min_pos=MAX_POS)
+        fb32 = (g.row_ptr, g.col_idx, fro32, need32, None,
+                found.view(torch.int32), residue.to(torch.int32), MAX_POS)
+        agree("segment_or", f"W={w} fallback", segment_or_rows(
+            g.row_ptr, g.col_idx, fro, **fb), segment_or_rows_ref(*fb32))
+        sel = torch.full((w,), -1, dtype=torch.int64, device=dev)
+        td32 = (g.row_ptr, g.col_idx, fro32, need32, sel.view(torch.int32),
+                None, None, 0)
+        agree("segment_or", f"W={w} top-down", segment_or_rows(
+            g.row_ptr, g.col_idx, fro, need, sel), segment_or_rows_ref(
+            *td32))
+        torch.cuda.synchronize()
+        rows, probes, words = lane_probe_work(pa)
+        slots = int(torch.where(residue, (g.deg - MAX_POS).clamp(min=0),
+                                0).sum())
+        probe_ms, probe_ms_32 = in_turns(
+            lambda: msbfs_probe(g.row_ptr, g.col_idx, fro, need, MAX_POS),
+            lambda: msbfs_probe(g.row_ptr, g.col_idx, fro32, need32,
+                                MAX_POS), reps, flush)
+        rec["msbfs_probe"]["widths"][w] = dict(
+            ms=probe_ms, ms_32=probe_ms_32,
+            bound_ms=lane_probe_cost(n, 2 * w, rows, probes, words)[0],
+            planes=2 * w)
+        sel32, found32 = sel.view(torch.int32), found.view(torch.int32)
+        td_ms, td_ms_32 = in_turns(
+            lambda: segment_or_rows(g.row_ptr, g.col_idx, fro, need, sel),
+            lambda: segment_or_rows(g.row_ptr, g.col_idx, fro32, need32,
+                                    sel32), reps, flush)
+        fb_ms, fb_ms_32 = in_turns(
+            lambda: segment_or_rows(g.row_ptr, g.col_idx, fro, **fb),
+            lambda: segment_or_rows(g.row_ptr, g.col_idx, fro32, need32,
+                                    base=found32, row_active=residue,
+                                    min_pos=MAX_POS), reps, flush)
+        rec["segment_or"]["widths"][w] = dict(
+            topdown_ms=td_ms, topdown_ms_32=td_ms_32,
+            topdown_bound_ms=row_or_cost(n, 2 * w, m, False, False, n)[0],
+            fallback_ms=fb_ms, fallback_ms_32=fb_ms_32,
+            fallback_bound_ms=row_or_cost(n, 2 * w, slots, True, True,
+                                          n)[0],
+            fallback_rows=int(residue.sum()), fallback_slots=slots,
+            planes=2 * w)
+    return rec
+
+
+def u64_child(args, dev) -> int:
+    """The u64 phase's child, run with LANE_WORD_BITS=64: the kernels on
+    int64 words, then width_run with the launches of that run alone.
+    Prints its phase lines and, last, one "u64_ok" line."""
+    check(LANE_WORD_BITS == 64 and word_dtype() == torch.int64,
+          f"the u64 child runs at {LANE_WORD_BITS}-bit words")
+    t0 = time.perf_counter()
+    common.load_library()
+    wg = rmat_weighted_graph(args.scale, EDGEFACTOR, seed=SEED)
+    g = wg.csr
+    torch.cuda.synchronize()
+    emit("u64_graph", word_bits=LANE_WORD_BITS, n=g.n, m=g.m,
+         seconds=time.perf_counter() - t0, build_cached=common.build_info.get(
+             "cached"))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    kernels = u64_kernels(g, args.reps, flush)
+    del flush
+    emit("u64_kernel", **kernels)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    digests, numbers = width_run(wg, args)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    for name in BATCHED_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was not launched at 64-bit words")
+    emit("u64_ok", word_bits=LANE_WORD_BITS, launches=launches,
+         numbers=numbers, digests=digests,
+         kernels={name: dict(cases=r["cases"], max_abs_err=r["max_abs_err"])
+                  for name, r in kernels.items()},
+         kernel_widths={name: r["widths"] for name, r in kernels.items()})
+    return 0
+
+
+def run_u64(wg, args) -> dict:
+    """The u64 phase: width_run here at 32-bit words, then this script
+    again in a child with LANE_WORD_BITS=64 (--u64-child), whose lines are
+    relayed. Fails unless the child exits 0 with a u64_ok line whose
+    digests equal this run's. Returns the child's u64_ok record."""
+    torch.cuda.synchronize()
+    common.reset_launches()
+    digests, numbers = width_run(wg, args)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, os.path.abspath(__file__), "--u64-child",
+           "--scale", str(args.scale), "--roots", str(args.roots),
+           "--reps", str(args.reps)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=dict(os.environ, LANE_WORD_BITS="64"),
+                          capture_output=True, text=True,
+                          timeout=U64_CHILD_TIMEOUT)
+    child_s = time.perf_counter() - t0
+    child = None
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase": "u64_ok"'):
+            child = json.loads(line)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+    check(proc.returncode == 0, f"the u64 child exited {proc.returncode}")
+    check(child is not None, "the u64 child printed no u64_ok line")
+    for key, want in digests.items():
+        check(child["digests"][key] == want,
+              f"{key} at 64-bit words differs from the 32-bit run")
+    emit("u64", child_seconds=child_s, digests_equal=sorted(digests),
+         replay_answers=len(digests["replay"]), launches_32=launches,
+         launches_64=child["launches"], numbers_32=numbers,
+         numbers_64=child["numbers"])
+    return child
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -2149,6 +2530,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None,
                     help="also write sssp_layers' per-step rows here")
+    ap.add_argument("--u64-child", action="store_true",
+                    help="run only the u64 phase's 64-bit half (the script "
+                         "starts it itself, with LANE_WORD_BITS=64)")
     args = ap.parse_args(argv)
     if not 1 <= args.sources <= SSSP_LANES:
         ap.error(f"--sources must be in [1, {SSSP_LANES}]")
@@ -2157,6 +2541,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.u64_child:
+        return u64_child(args, dev)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2222,6 +2608,9 @@ def main(argv=None) -> int:
     figure3(g, args)
     run_analytics(wg, args, sssp_points)
     serve_launches = run_serve(wg, args)
+    run_hillclimb(g, args)
+    run_serve_bench(wg, args)
+    u64 = run_u64(wg, args)
 
     kernels = []
     for name in KERNELS:
@@ -2251,6 +2640,13 @@ def main(argv=None) -> int:
                 per[key] = r[key]
         if name in SERVE_KERNELS:
             per["serve_launches"] = serve_launches[name]
+        if name in BATCHED_KERNELS:
+            # int64 words through the int32 view: the child's main-path
+            # launches, its bit-equal cases, its times against the 32-bit
+            # kernel on the same planes
+            per["u64"] = dict(launches=u64["launches"][name],
+                              bit_equal=True, **u64["kernels"][name],
+                              widths=u64["kernel_widths"][name])
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

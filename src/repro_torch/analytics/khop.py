@@ -4,9 +4,10 @@
 A k-hop query is a depth-sliced BFS read-out: run the lane engine from the
 query sources, then slice the per-lane depths at ``depth <= k``. The result
 keeps the engines' own bit layout (``core.packed.depth_slice_words``: bit
-``r % 32`` of lane word ``r // 32``), viewed as host ``uint32`` words, the
-reference's dtype, so that downstream packed consumers work on words;
-per-lane membership unpacks on demand.
+``r % LANE_WORD_BITS`` of lane word ``r // LANE_WORD_BITS``), viewed as host
+unsigned words (``uint32`` or ``uint64``, the reference's dtype), so that
+downstream packed consumers work on words; per-lane membership unpacks on
+demand.
 
 ``bfs_depths`` / ``reach_hops`` are the plain-traversal siblings behind
 ``BFSQuery`` / ``ReachQuery``: full per-source depth columns and pairwise
@@ -23,7 +24,8 @@ import torch
 
 from repro_torch.analytics.engine import as_engine
 from repro_torch.analytics.meta import QueryMeta
-from repro_torch.core.packed import depth_slice_words, unpack_lanes
+from repro_torch.core.packed import (depth_slice_words, host_word_dtype,
+                                     signed_words, unpack_lanes)
 
 __all__ = ["BFSResult", "KHopResult", "ReachResult", "bfs_depths",
            "khop_neighborhood", "reach_hops", "reachability"]
@@ -33,7 +35,7 @@ __all__ = ["BFSResult", "KHopResult", "ReachResult", "bfs_depths",
 class KHopResult:
     sources: np.ndarray          # int32[S]
     k: int
-    words: np.ndarray            # uint32[n, W] — packed membership, lane s = source s
+    words: np.ndarray            # uint32/64[n, W] — packed membership, lane s = source s
     counts: np.ndarray           # int64[S] — |k-hop neighbourhood| incl. source
     depth: np.ndarray            # int32[n, S] — BFS depths (-1 unreached)
     meta: QueryMeta = field(default_factory=QueryMeta)
@@ -45,7 +47,7 @@ class KHopResult:
 
     def member_mask(self) -> np.ndarray:
         """bool[n, S] unpacked membership (one column per source)."""
-        words = torch.from_numpy(np.array(self.words).view(np.int32))
+        words = torch.from_numpy(signed_words(self.words))
         return unpack_lanes(words, self.sources.size).numpy()
 
 
@@ -82,7 +84,8 @@ def khop_result_from_depth(sources: np.ndarray, k: int, depth,
     depth = torch.as_tensor(depth)
     counts = ((depth >= 0) & (depth <= k)).sum(dim=0)
     words = depth_slice_words(depth, k).cpu().numpy()
-    return KHopResult(sources=sources, k=int(k), words=words.view(np.uint32),
+    return KHopResult(sources=sources, k=int(k),
+                      words=words.view(host_word_dtype()),
                       counts=counts.cpu().numpy(), depth=depth.cpu().numpy(),
                       meta=meta)
 

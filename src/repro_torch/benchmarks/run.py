@@ -1,0 +1,100 @@
+"""Benchmark runner on the GPU, one function per paper table or figure
+(port of ``benchmarks/run.py``).
+
+Prints ``name,us_per_call,derived`` CSV for each benchmark, where
+``us_per_call`` is the wall time of the benchmark's run (graph generation
+included, as in the reference) and ``derived`` the benchmark's headline
+derived quantity.
+
+  python -m repro_torch.benchmarks.run            # fast defaults
+  python -m repro_torch.benchmarks.run --full     # paper-scale sweep
+
+(with ``src`` on ``PYTHONPATH``; ``--device cpu`` for the plain PyTorch
+path). The reference's fifth bench, ``roofline``, reads the TPU dry-run
+artifacts of ``launch/roofline.py``, which the port does not have yet:
+``--only roofline`` raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.device import resolve_device
+
+
+def _timed(fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, (time.perf_counter() - t0) * 1e6
+
+
+def bench_table2(full: bool, device):
+    from repro_torch.benchmarks.table2_switching import run
+    rows, us = _timed(run, 14 if full else 11, 16, device=device)
+    bu_layers = sum(1 for r in rows if r["approach"] == "bottom-up")
+    return us, f"bu_layers={bu_layers}/{len(rows)}"
+
+
+def bench_table3(full: bool, device):
+    from repro_torch.benchmarks.table3_maxpos import run
+    rows, us = _timed(run, 13 if full else 11, 16, device=device)
+    big = max(rows, key=lambda r: r["found"])
+    return us, f"retired@8={big['retired_frac'][8]:.3f}"
+
+
+def bench_fig3(full: bool, device):
+    from repro_torch.benchmarks.fig3_teps import run
+    scales = (12, 13, 14) if full else (10, 11)
+    efs = (16, 32, 64) if full else (16, 32)
+    res, us = _timed(run, scales, efs, 16 if full else 4, device=device)
+    sc = scales[-1]
+    simd = res[(sc, efs[-1], "hybrid")]
+    nosimd = res[(sc, efs[-1], "hybrid_nosimd")]
+    return us, f"simd_vs_nosimd={simd / max(nosimd, 1):.3f}x"
+
+
+def bench_table4(full: bool, device):
+    from repro_torch.benchmarks.table4_counters import run
+    rows, us = _timed(run, 13 if full else 11, 32 if full else 16,
+                      device=device)
+    tot_no = sum(r["t_nosimd_ms"] for r in rows)
+    tot_si = sum(r["t_simd_ms"] for r in rows)
+    return us, f"bu_speedup={tot_no / max(tot_si, 1e-9):.2f}x"
+
+
+BENCHES = [
+    ("table2_switching", bench_table2),
+    ("table3_maxpos", bench_table3),
+    ("fig3_teps", bench_fig3),
+    ("table4_counters", bench_table4),
+]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--full", action="store_true",
+                    help="paper-scale sweep (slower)")
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the GPU (raises without one)")
+    args = ap.parse_args(argv)
+    if args.only == "roofline":
+        raise NotImplementedError(
+            "the roofline bench reads the dry-run roofline records of "
+            "launch/roofline.py, which is not ported yet (ROADMAP queue A "
+            "item 10 (f))")
+    names = [name for name, _ in BENCHES]
+    if args.only is not None and args.only not in names:
+        ap.error(f"--only must be one of {names + ['roofline']}")
+    device = resolve_device(args.device)
+
+    print("name,us_per_call,derived")
+    for name, fn in BENCHES:
+        if args.only and args.only != name:
+            continue
+        us, derived = fn(args.full, device)
+        print(f"{name},{us:.0f},{derived}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

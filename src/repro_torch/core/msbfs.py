@@ -1,8 +1,9 @@
 """Bit-packed multi-source BFS (MS-BFS): port of ``repro.core.msbfs``.
 
-Independent BFS traversals run together, one bit-lane each: bit ``r % 32``
-of lane word ``r // 32`` at row ``v`` means "root r's traversal has reached
-v" (``core/packed.py``). Two engines share the packed steps:
+Independent BFS traversals run together, one bit-lane each: bit ``r %
+LANE_WORD_BITS`` of lane word ``r // LANE_WORD_BITS`` at row ``v`` means
+"root r's traversal has reached v" (``core/packed.py``; the words are 32 or
+64 bits wide, ``word_dtype()``). Two engines share the packed steps:
 
 * ``msbfs``: one batch of R <= ``MAX_LANES`` roots.
 * the pipelined engine (``msbfs_pipelined`` and the ``msbfs_engine_*``
@@ -32,12 +33,13 @@ import torch
 from repro_torch.core.csr import CSRGraph
 from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT, MAX_TRACE
 from repro_torch.core.packed import (LANE_WORD_BITS, MODES, depth_slice_words,
-                                     dispatch_packed_step, lane_counters,
-                                     num_lane_words, pack_lanes_np,
-                                     queue_claims, select_direction,
-                                     to_device, unpack_lanes)
+                                     dispatch_packed_step, host_word_dtype,
+                                     lane_counters, num_lane_words,
+                                     pack_lanes_np, queue_claims,
+                                     select_direction, signed_words,
+                                     to_device, unpack_lanes, word_dtype)
 
-MAX_LANES = 64          # two lane words of roots per batch
+MAX_LANES = 64          # roots per batch: two 32-bit lane words, or one 64-bit
 PARENT_LANE_CHUNK = 8   # lanes per [m, chunk] buffer of _derive_parents
 
 
@@ -89,8 +91,7 @@ def _seat(words: torch.Tensor, depth: torch.Tensor, roots: np.ndarray,
         idx = to_device(uniq, dev)
         flat = words.view(-1)
         flat.index_copy_(0, idx, flat.index_select(0, idx)
-                         | to_device(bits.astype(np.uint32).view(np.int32),
-                                     dev))
+                         | to_device(signed_words(bits), dev))
         depth[to_device(roots, dev), to_device(lanes, dev)] = 0
     return keep
 
@@ -117,7 +118,7 @@ def msbfs(g: CSRGraph, roots, mode: str = "hybrid",
                          f"arbitrary root counts")
     n, dev = g.n, g.device
     w = num_lane_words(num_roots)
-    frontier = torch.zeros((n, w), dtype=torch.int32, device=dev)
+    frontier = torch.zeros((n, w), dtype=word_dtype(), device=dev)
     depth = torch.full((n, num_roots), -1, dtype=torch.int32, device=dev)
     _seat(frontier, depth, roots, np.arange(num_roots))
     visited = frontier.clone()
@@ -212,8 +213,8 @@ def _derive_parents(g: CSRGraph, depth: torch.Tensor,
 
 
 class PipelineState(NamedTuple):
-    frontier: torch.Tensor       # int32[n, W]  packed lane frontiers (device)
-    visited: torch.Tensor        # int32[n, W]  (device)
+    frontier: torch.Tensor       # word_dtype()[n, W]  packed lane frontiers (device)
+    visited: torch.Tensor        # word_dtype()[n, W]  (device)
     depth: torch.Tensor          # int32[n, L]  active-lane depths (device)
     lane_layer: np.ndarray       # int32[L]     steps run for the lane's root
     lane_qidx: np.ndarray        # int32[L]     queue slot served; capacity = idle
@@ -245,8 +246,8 @@ class PipelineState(NamedTuple):
 def msbfs_engine_init(g: CSRGraph, capacity: int,
                       lanes: int = MAX_LANES) -> PipelineState:
     """Fresh engine on the graph's device: all lanes idle, an empty root
-    queue of ``capacity`` slots, ``lanes`` bit-lanes (W = ceil(lanes/32)
-    lane words per vertex)."""
+    queue of ``capacity`` slots, ``lanes`` bit-lanes (W =
+    ceil(lanes / LANE_WORD_BITS) lane words per vertex)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     if lanes < 1:
@@ -258,9 +259,9 @@ def msbfs_engine_init(g: CSRGraph, capacity: int,
     counters = np.zeros((3, lanes), np.int32)
     counters[2] = deg_total
     return PipelineState(
-        frontier=torch.zeros((n, num_lane_words(lanes)), dtype=torch.int32,
+        frontier=torch.zeros((n, num_lane_words(lanes)), dtype=word_dtype(),
                              device=dev),
-        visited=torch.zeros((n, num_lane_words(lanes)), dtype=torch.int32,
+        visited=torch.zeros((n, num_lane_words(lanes)), dtype=word_dtype(),
                             device=dev),
         depth=torch.full((n, lanes), -1, dtype=torch.int32, device=dev),
         lane_layer=np.zeros(lanes, np.int32),
@@ -279,24 +280,24 @@ def msbfs_engine_init(g: CSRGraph, capacity: int,
 
 def pipeline_state_from_numpy(fields: dict, device=None) -> PipelineState:
     """A reference ``PipelineState``, given as numpy arrays and ints keyed
-    by its field names (lane words as uint32 or as their int32 view), as a
-    port state on ``device``: the state carried across, as
-    ``core/csr.py::from_numpy_graph`` carries the graph. The counters and
-    the host degrees are read on the first step."""
+    by its field names (lane words unsigned, as the reference holds them,
+    or as their signed view), as a port state on ``device``: the state
+    carried across, as ``core/csr.py::from_numpy_graph`` carries the graph.
+    The counters and the host degrees are read on the first step."""
     from repro_torch.device import resolve_device
     device = resolve_device(device)
 
-    def dev(name):
+    def dev(name, words=False):
         a = np.ascontiguousarray(fields[name])
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(a.astype(np.int32)).to(device)
+        a = signed_words(a) if words else a.astype(np.int32)
+        return torch.from_numpy(a).to(device)
 
     def host(name, dtype=np.int32):
         return np.array(fields[name], dtype=dtype)
 
     return PipelineState(
-        frontier=dev("frontier"), visited=dev("visited"), depth=dev("depth"),
+        frontier=dev("frontier", True), visited=dev("visited", True),
+        depth=dev("depth"),
         lane_layer=host("lane_layer"), lane_qidx=host("lane_qidx"),
         topdown=host("topdown", bool), queue=host("queue"),
         queued=int(fields["queued"]), next_root=int(fields["next_root"]),
@@ -543,11 +544,11 @@ class LayerReadout(NamedTuple):
         return self.depth[:, lane] if lane >= 0 else None
 
     def slice_words(self, max_depth: int, min_depth: int = 0) -> np.ndarray:
-        """``packed.depth_slice_words`` over the live lane depths, as uint32
-        words (the reference's dtype)."""
+        """``packed.depth_slice_words`` over the live lane depths, as
+        unsigned words (the reference's dtype, ``host_word_dtype()``)."""
         words = depth_slice_words(torch.from_numpy(self.depth), max_depth,
                                   min_depth)
-        return words.numpy().view(np.uint32)
+        return words.numpy().view(host_word_dtype())
 
 
 def msbfs_engine_readout(state: PipelineState) -> LayerReadout:
@@ -616,8 +617,8 @@ def msbfs_pipelined(g: CSRGraph, roots, mode: str = "hybrid",
 
     Roots beyond the ``lanes`` pool wait in the queue and refill lanes as
     traversals finish, with no batch barrier. With R <= lanes the pool
-    shrinks to ceil32(R) lanes and this gives the single-batch ``msbfs``
-    results.
+    shrinks to R rounded up to whole lane words, and this gives the
+    single-batch ``msbfs`` results.
 
     ``recorder`` (a ``repro_torch.obs.SweepRecorder``) steps the engine
     through ``obs.sweeplog.drive_recorded`` and records a ``LayerRecord``

@@ -1,12 +1,16 @@
 """Packed bit-lane primitives of the multi-source BFS engines.
 
-Port of ``repro.core.packed``. Bit ``r % 32`` of lane word ``r // 32`` at
-row ``v`` means "root r's traversal has reached v". Words are stored as
-int32 bit patterns, as ``core/bitmap.py`` stores its words: a word viewed as
-uint32 equals the reference's word. ``>>`` on int32 is arithmetic, so every
+Port of ``repro.core.packed``. Bit ``r % LANE_WORD_BITS`` of lane word
+``r // LANE_WORD_BITS`` at row ``v`` means "root r's traversal has reached
+v". ``LANE_WORD_BITS`` is read from the environment at import, as the
+reference reads it: 32 (the default) or 64. Words are stored as the bit
+patterns of the reference's unsigned words in ``word_dtype()`` (int32 or
+int64), as ``core/bitmap.py`` stores its words: a word viewed as unsigned
+equals the reference's word. ``>>`` on signed words is arithmetic, so every
 bit extraction ends in ``& 1``; the CUDA kernels read the words as
-``uint32_t``. Lane words are 32 bits wide (the reference's
-``LANE_WORD_BITS=32``).
+``uint32_t``. A 64-bit word column reaches them as its int32 view, which is
+the reference's ``split_u64_words`` layout (plane 2k word k's low half,
+plane 2k+1 its high half; ``kernels/common.py::word_planes``).
 
 The step functions take the graph as a ``CSRGraph`` and assume, as the
 reference does, that ``row_ptr`` indexes the caller's rows, ``col_idx``
@@ -20,16 +24,43 @@ and ``queue_claims`` take and return numpy arrays.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from repro_torch.core.csr import CSRGraph
 from repro_torch.core.hybrid import switch_direction
+from repro_torch.kernels.common import word_planes
 from repro_torch.kernels.msbfs_probe.ops import msbfs_probe
 from repro_torch.kernels.segment_or.ops import segment_or_rows
 
-LANE_WORD_BITS = 32
+# the width of a lane word, from the environment as in the reference; there
+# is no switch at run time (a test of the other width runs in a child)
+LANE_WORD_BITS = int(os.environ.get("LANE_WORD_BITS", "32"))
+if LANE_WORD_BITS not in (32, 64):
+    raise ValueError(
+        f"LANE_WORD_BITS must be 32 or 64, got {LANE_WORD_BITS}")
 MODES = ("hybrid", "topdown", "bottomup")
+
+
+def word_dtype() -> torch.dtype:
+    """The lane words' tensor dtype: int32 or int64, the bit patterns of
+    the reference's uint32 or uint64 words."""
+    return torch.int64 if LANE_WORD_BITS == 64 else torch.int32
+
+
+def host_word_dtype() -> type:
+    """The reference's host dtype of a lane word, for the surfaces that
+    give words as unsigned: np.uint32 or np.uint64."""
+    return np.uint64 if LANE_WORD_BITS == 64 else np.uint32
+
+
+def signed_words(a: np.ndarray) -> np.ndarray:
+    """Host lane words (unsigned, or int64 sums of distinct bits) as the
+    bit patterns of ``word_dtype()``, ready for ``torch.from_numpy``."""
+    signed = np.int64 if LANE_WORD_BITS == 64 else np.int32
+    return np.asarray(a).astype(host_word_dtype()).view(signed)
 
 
 def num_lane_words(num_roots: int) -> int:
@@ -37,10 +68,12 @@ def num_lane_words(num_roots: int) -> int:
 
 
 def pack_lanes(mask: torch.Tensor) -> torch.Tensor:
-    """Pack bool[..., R] lane masks into int32[..., W] words (LSB-first).
+    """Pack bool[..., R] lane masks into ``word_dtype()``[..., W] words
+    (LSB-first).
 
-    Words are built in int64 and wrapped to int32, so lane 31 sets the sign
-    bit."""
+    Words are built in int64: a sum of distinct bits is their OR, so at 64
+    bits it is already the word (lane 63 sets the sign bit), and at 32 bits
+    it wraps to int32 (lane 31 sets the sign bit)."""
     r = mask.shape[-1]
     w = num_lane_words(r)
     lanes = torch.zeros(mask.shape[:-1] + (w * LANE_WORD_BITS,),
@@ -50,24 +83,30 @@ def pack_lanes(mask: torch.Tensor) -> torch.Tensor:
                           device=mask.device)
     words = (lanes.view(mask.shape[:-1] + (w, LANE_WORD_BITS))
              << shifts).sum(dim=-1)
-    return words.to(torch.int32)
+    return words.to(word_dtype())
 
 
 def pack_lanes_np(mask: np.ndarray) -> np.ndarray:
-    """``pack_lanes`` of a host bool[R] mask, as a host int32[W] array."""
+    """``pack_lanes`` of a host bool[R] mask, as a host array of W words
+    in ``word_dtype()``'s numpy twin."""
     r = mask.shape[-1]
     lanes = np.zeros(num_lane_words(r) * LANE_WORD_BITS, np.int64)
     lanes[:r] = mask
     words = (lanes.reshape(-1, LANE_WORD_BITS)
              << np.arange(LANE_WORD_BITS, dtype=np.int64)).sum(axis=-1)
-    return words.astype(np.uint32).view(np.int32)
+    return signed_words(words)
 
 
 def unpack_lanes(words: torch.Tensor, num_roots: int) -> torch.Tensor:
-    """Unpack int32[..., W] lane words into bool[..., R]."""
-    shifts = torch.arange(LANE_WORD_BITS, dtype=torch.int32,
-                          device=words.device)
-    bits = (words[..., None] >> shifts) & 1
+    """Unpack lane words [..., W] into bool[..., R].
+
+    64-bit words are unpacked over their int32 view: lane r is bit r % 32 of
+    half-word r // 32 in both layouts, so the result is the same and the
+    [..., 2W, 32] intermediate is the 32-bit engine's, not an int64 one of
+    twice the bytes."""
+    halves = word_planes(words.contiguous())
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (halves[..., None] >> shifts) & 1
     flat = bits.reshape(words.shape[:-1] + (-1,))
     return flat[..., :num_roots].to(torch.bool)
 
@@ -82,7 +121,9 @@ def depth_slice_words(depth: torch.Tensor, max_depth: int,
 
 
 def segment_or(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Per-CSR-row bitwise OR of int32[m, W] edge-lane words -> int32[n, W].
+    """Per-CSR-row bitwise OR of [m, W] edge-lane words -> [n, W], in the
+    words' own dtype (int32 or int64; an int64 column is ORed as its two
+    int32 halves, which an OR leaves exact).
 
     The plain version of the reference's segmented-OR scan: torch has no
     scan with an OR combine and no OR mode in ``scatter_reduce``, so this
@@ -92,13 +133,16 @@ def segment_or(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     (distributed edge-slab padding) lie in no row and reach no output. One
     bit at a time, so every prefix sum is a 1-D scan (a scan down the
     columns of an [m, 32] array runs one thread per column on the GPU)."""
+    if vals.dtype == torch.int64:
+        return segment_or(word_planes(vals.contiguous()),
+                          row_ptr).view(torch.int64)
     m, w = vals.shape
     lo, hi = row_ptr[:-1].long(), row_ptr[1:].long()
     out = torch.zeros((row_ptr.shape[0] - 1, w), dtype=torch.int64,
                       device=vals.device)
     csum = torch.zeros(m + 1, dtype=torch.int32, device=vals.device)
     for k in range(w):
-        for b in range(LANE_WORD_BITS):
+        for b in range(32):
             torch.cumsum((vals[:, k] >> b) & 1, dim=0, dtype=torch.int32,
                          out=csum[1:])
             out[:, k] |= ((csum[hi] - csum[lo]) > 0).long() << b
@@ -192,9 +236,10 @@ def dispatch_packed_step(g: CSRGraph, frontier: torch.Tensor,
                          max_pos: int) -> torch.Tensor:
     """The packed TD/BU step(s) of one layer under the lane selectors.
 
-    The selectors are host int32[W] arrays, built from the counters the
-    engine read back: a direction with no lane selected is skipped on the
-    host, as the reference skips it with ``lax.cond``."""
+    The selectors are host arrays of W words (``pack_lanes_np``), built
+    from the counters the engine read back: a direction with no lane
+    selected is skipped on the host, as the reference skips it with
+    ``lax.cond``."""
     dev = frontier.device
     if mode == "topdown":
         return topdown_packed_step(g, frontier, visited,
@@ -238,7 +283,7 @@ def adaptive_lane_pool(pending: int, n: int, m: int, max_lanes: int = 256,
     * capped so that the packed state (frontier and visited words plus the
       int32 depth column per lane) stays inside ``state_budget_bytes``.
 
-    Returns a positive multiple of 32."""
+    Returns a positive multiple of ``LANE_WORD_BITS``."""
     if n < 1:
         raise ValueError(f"need a non-empty graph, got n={n}")
     pending = max(int(pending), 1)

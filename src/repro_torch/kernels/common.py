@@ -1,4 +1,5 @@
-"""Shared kernel plumbing: ``cdiv``, the kernel build and the launch counts.
+"""Shared kernel plumbing: ``cdiv``, the lane-word planes, the kernel build
+and the launch counts.
 
 The CUDA sources in ``repro_torch/csrc/*.cu`` have a plain C interface. On
 first use they are compiled for ``sm_90a`` by ``nvcc``, one process per
@@ -38,6 +39,17 @@ build_info: dict = {}
 
 def cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def word_planes(words: torch.Tensor) -> torch.Tensor:
+    """Lane words as the int32 word planes the lane-word kernels read.
+
+    int32 words are their own planes. int64 words [..., W] become their
+    int32 view [..., 2W], which is the reference's ``split_u64_words``
+    layout: plane 2k is word k's low half and plane 2k + 1 its high half
+    (the card and the host are little-endian). The view needs a contiguous
+    last dimension; ``.view(torch.int64)`` of a result undoes it."""
+    return words.view(torch.int32) if words.dtype == torch.int64 else words
 
 
 def reset_launches() -> None:
