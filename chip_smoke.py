@@ -109,6 +109,30 @@ phase prints one JSON line:
            64-request trace of the serve phase's mix at the graph's scale,
            with its own asserts (streamed answers bit-equal to flushed
            ones, a mean khop gain of at least one layer), and its points;
+  dist_kernel     the kernels of the 1-D distributed engines on the
+           card without a process group: bottom_up_probe on every
+           bottom-up layer of the probe root's BFS, msbfs_probe and both
+           forms of segment_or on the 64-lane sweep layer with the most
+           bottom-up lanes, each on every row block of partition_graph(g,
+           4) against the global frontier, bit-equal to its plain version,
+           with its ms a block beside the whole graph's;
+  dist     the sharded engines on one NCCL rank (distributed.ranks.
+           run_ranks; NCCL takes one GPU a rank, and the script needs one
+           GPU), the graph handed over by file: dist_bfs for Fig. 3's
+           16 roots against the serial bfs (parent, depth, layers) with its
+           ms a root beside the serial's and the launches of that run
+           (bottom_up_probe); run_graph500(batched=True, mesh=) at --roots
+           and 4x as many roots in 64 lanes with the launches of each run
+           (msbfs_probe, segment_or) and the digest of every result field
+           against the host engine's; LaneEngine(mesh=).sweep's depths
+           against LaneEngine()'s; the sharded and the host harness at
+           --roots, 3 times in turns (from an empty allocator cache),
+           and the sweep split into its engine steps and its result (the
+           parent derivation), each engine in turns; one sharded sweep
+           step by step (wall
+           ms, host syncs: 1 a step) and the step's two collectives alone
+           (the all-gather of the rank's [n_loc, W] new rows, the counter
+           all-reduce with its read-back);
   u64      the port at 64-bit lane words: the same sweeps (run_graph500
            batched=True at --roots and 4x as many roots), a 64-source khop
            and one streamed replay of the serve phase's trace, run here at
@@ -118,8 +142,11 @@ phase prints one JSON line:
            msbfs_probe and both forms of segment_or on random int64 words
            (W = 1, 2, 3, through their int32 view) against their plain
            versions and times them in turns beside the same wrappers on
-           the same bits as int32 words; its sweeps, khop and replay must
-           launch both kernels. sha256 digests of every sweep's parent,
+           the same bits as int32 words, and X1's library call (one
+           segment_reduce over the unpacked bits) at each W; its sweeps,
+           khop and replay must launch both kernels, and its sweep at
+           --roots on the sharded engine over a 1-rank NCCL mesh must
+           launch them and give the host sweep's digests. sha256 digests of every sweep's parent,
            depth, num_layers, edges_traversed and traces, of the khop
            membership and of every replay answer's result must equal the
            32-bit run's; sweep wall and TEPS, the replay's pool lanes,
@@ -127,7 +154,8 @@ phase prints one JSON line:
            widths;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed;
-           msbfs_probe's and segment_or's u64 record from the child).
+           msbfs_probe's and segment_or's u64 record from the child; the
+           dist record of bottom_up_probe, msbfs_probe and segment_or).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
 repository's src/, or a u64 child that fails or outlives its time limit
@@ -186,18 +214,28 @@ from repro_torch.core.bottomup import (_fallback_scan,  # noqa: E402
 from repro_torch.configs.base import (effective_cfg, get_arch,  # noqa: E402
                                       make_step, param_builders)
 from repro_torch.core.csr import CSRGraph, ell_pad, to_numpy_adj  # noqa: E402
+from repro_torch.core.dist_bfs import dist_bfs, partition_graph  # noqa: E402
+from repro_torch.core.dist_msbfs import (  # noqa: E402
+    dist_msbfs, dist_msbfs_engine_drain, dist_msbfs_engine_enqueue,
+    dist_msbfs_engine_idle, dist_msbfs_engine_init, dist_msbfs_engine_result,
+    dist_msbfs_engine_step, host_mesh)
+from repro_torch.core.exchange import all_gather, psum  # noqa: E402
 from repro_torch.core.hybrid import (ALPHA_DEFAULT, BETA_DEFAULT,  # noqa: E402
                                      MAX_TRACE, bfs, switch_direction)
 from repro_torch.core.msbfs import (_derive_parents, _plan, _refill,  # noqa: E402
-                                    msbfs_engine_enqueue, msbfs_engine_idle,
-                                    msbfs_engine_init, msbfs_engine_result,
-                                    msbfs_engine_step, msbfs_pipelined)
+                                    msbfs_engine_drain, msbfs_engine_enqueue,
+                                    msbfs_engine_idle, msbfs_engine_init,
+                                    msbfs_engine_result, msbfs_engine_step,
+                                    msbfs_pipelined)
 from repro_torch.core.packed import (LANE_WORD_BITS,  # noqa: E402
                                      lane_counters, pack_lanes_np,
                                      unpack_lanes, word_dtype)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
 from repro_torch.data.pipeline import gnn_batch  # noqa: E402
+from repro_torch.distributed.ranks import (load_graph,  # noqa: E402
+                                           rank_device, run_ranks,
+                                           save_graph)
 from repro_torch.graph.generator import (rmat_graph,  # noqa: E402
                                          rmat_weighted_graph, sample_roots)
 from repro_torch.graph.graph500 import run_graph500  # noqa: E402
@@ -328,6 +366,11 @@ HILLCLIMB_REPEATS = 3
 # child's time limit
 U64_WIDTHS = (1, 2, 3)
 U64_CHILD_TIMEOUT = 900
+# the dist phase: the partition its kernels run on block by block and the
+# host/sharded sweep pairs timed in turns
+DIST_BLOCKS = 4
+DIST_TURNS = 3
+DIST_KERNELS = ("bottom_up_probe", "msbfs_probe", "segment_or")
 
 
 class SmokeFailure(RuntimeError):
@@ -789,7 +832,8 @@ def syncs_of(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(c.message) for c in caught)
+    # not the one-off note that the debug mode is a prototype
+    return sum("called a synchronizing" in str(c.message) for c in caught)
 
 
 def batched_sweep(g, roots, chk, reps, flush):
@@ -2439,8 +2483,9 @@ def u64_kernels(g, reps, flush) -> dict:
             lambda: segment_or_rows(g.row_ptr, g.col_idx, fro32, need32,
                                     base=found32, row_active=residue,
                                     min_pos=MAX_POS), reps, flush)
+        library_ms = x1_library_ms(g, fro, sel, need, w, reps, flush)
         rec["segment_or"]["widths"][w] = dict(
-            topdown_ms=td_ms, topdown_ms_32=td_ms_32,
+            library_ms=library_ms, topdown_ms=td_ms, topdown_ms_32=td_ms_32,
             topdown_bound_ms=row_or_cost(n, 2 * w, m, False, False, n)[0],
             fallback_ms=fb_ms, fallback_ms_32=fb_ms_32,
             fallback_bound_ms=row_or_cost(n, 2 * w, slots, True, True,
@@ -2448,6 +2493,34 @@ def u64_kernels(g, reps, flush) -> dict:
             fallback_rows=int(residue.sum()), fallback_slots=slots,
             planes=2 * w)
     return rec
+
+
+def x1_library_ms(g, fro, sel, need, w, reps, flush) -> float:
+    """X1's library yardstick on int64 words, as lane_kernel_random times
+    it on int32 words: one segment_reduce(max) over the edge slots'
+    frontier words unpacked to 64W float32 bit columns (built outside the
+    timing, in chunks of slots), held against the kernel's top-down form
+    with every row unmasked and every lane selected."""
+    m, bits = g.m, LANE_WORD_BITS * w
+    cols = torch.empty((m, bits), dtype=torch.float32, device=g.device)
+    chunk = 1 << 22
+    for lo in range(0, m, chunk):
+        cols[lo:lo + chunk] = unpack_lanes(fro[g.col_idx[lo:lo + chunk]],
+                                           bits)
+    lengths = g.deg.to(torch.int64)
+
+    def library():
+        return torch.segment_reduce(cols, "max", lengths=lengths, axis=0,
+                                    unsafe=True, initial=0.0)
+
+    full = torch.full_like(need, -1)
+    check(torch.equal(library().to(torch.bool), unpack_lanes(
+        segment_or_rows(g.row_ptr, g.col_idx, fro, full, sel), bits)),
+          f"X1's library yardstick at W={w} computes another function")
+    ms = time_ms(library, reps, flush)
+    del cols
+    torch.cuda.empty_cache()
+    return ms
 
 
 def u64_child(args, dev) -> int:
@@ -2476,8 +2549,26 @@ def u64_child(args, dev) -> int:
     for name in BATCHED_KERNELS:
         check(launches[name] > 0,
               f"{name} was not launched at 64-bit words")
+    # the sharded engine on a 1-rank NCCL mesh, at 64-bit words: the host
+    # sweep's digests
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_u64_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(g, path)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dist = run_ranks(dist_sweep_rank, 1, path, args.roots)
+    check(dist["word_bits"] == 64, "the sharded rank ran at other words")
+    check(dist["digests"] == digests[f"sweep_{args.roots}"],
+          "the sharded sweep at 64-bit words differs from the host sweep")
+    for name in BATCHED_KERNELS:
+        check(dist["launches"][name] > 0,
+              f"{name} was not launched by the sharded sweep at 64 bits")
+    numbers["dist_sweep"] = dict(roots=args.roots, lanes=LANES,
+                                 seconds=time.perf_counter() - t0,
+                                 digests_equal=sorted(dist["digests"]))
     emit("u64_ok", word_bits=LANE_WORD_BITS, launches=launches,
-         numbers=numbers, digests=digests,
+         dist_launches=dist["launches"], numbers=numbers, digests=digests,
          kernels={name: dict(cases=r["cases"], max_abs_err=r["max_abs_err"])
                   for name, r in kernels.items()},
          kernel_widths={name: r["widths"] for name, r in kernels.items()})
@@ -2520,6 +2611,320 @@ def run_u64(wg, args) -> dict:
          launches_64=child["launches"], numbers_32=numbers,
          numbers_64=child["numbers"])
     return child
+
+
+# ---------------------------------------------------------------------------
+# dist: the 1-D distributed engines
+# ---------------------------------------------------------------------------
+
+
+def sweep_layer_state(g, roots):
+    """The host engine's state at the layer of a 64-lane sweep with the
+    most bottom-up lanes: (layer, frontier [n, W], visited [n, W], bu_sel,
+    td_sel) on the card, the selectors as W words."""
+    s = msbfs_engine_enqueue(msbfs_engine_init(g, len(roots), LANES), roots)
+    best = None
+    while not msbfs_engine_idle(s):
+        s = _refill(g, s, True)
+        topdown, live = _plan(s, "hybrid", g.n, ALPHA_DEFAULT, BETA_DEFAULT)
+        bu = ~topdown & live
+        if best is None or bu.sum() > best[0]:
+            best = (int(bu.sum()), s.sweep_layers, s.frontier.clone(),
+                    s.visited.clone(),
+                    torch.from_numpy(pack_lanes_np(bu)).to(g.device),
+                    torch.from_numpy(pack_lanes_np(topdown & live)).to(
+                        g.device))
+        s = msbfs_engine_step(g, s)
+    return best[1:]
+
+
+def dist_kernels(g, probe_out, reps, flush):
+    """The dist phase's kernels on the card, no process group needed: B1
+    on every bottom-up layer of the probe root's BFS, and B3 and both forms
+    of X1 on the 64-lane sweep layer with the most bottom-up lanes, each on
+    every row block of partition_graph(g, 4) against the global frontier
+    (as a rank of a 4-rank engine calls it), bit-equal to its plain
+    version, timed beside the same kernel on the whole graph."""
+    dev = g.device
+    dg = partition_graph(g, DIST_BLOCKS)
+    blocks = [dg.local(d, dev) for d in range(DIST_BLOCKS)]
+    rec = {name: dict(cases=0, max_abs_err=0) for name in DIST_KERNELS}
+    dirs = probe_out.trace_dir.tolist()
+    b1 = []
+    for layer, f, v, p in layer_states(g, probe_out):
+        if dirs[layer] != 1:
+            continue
+        fw, unv = bitmap.pack(f), ~v
+        row = dict(layer=layer, whole_ms=time_ms(
+            lambda: bottom_up_probe_cuda(g.row_ptr, unv, p, g.col_idx, fw,
+                                         MAX_POS), reps, flush),
+            block_ms=[])
+        for blk in blocks:
+            rows = slice(blk.base, blk.base + dg.n_loc)
+            bu, bp = unv[rows].contiguous(), p[rows].contiguous()
+            bg = blk.g
+            k = bottom_up_probe_cuda(bg.row_ptr, bu, bp, bg.col_idx, fw,
+                                     MAX_POS)
+            want = bottom_up_probe_ref(bg.row_ptr[:-1], blk.deg,
+                                       bu.to(torch.int32), bp, bg.col_idx,
+                                       fw, MAX_POS)
+            err = max_abs_err(zip(k, want))
+            check(err == 0 and all(torch.equal(a, b) for a, b in
+                                   zip(k, want)),
+                  f"bottom_up_probe differs from its plain version on block "
+                  f"{blk.base // dg.n_loc} of layer {layer}")
+            rec["bottom_up_probe"]["cases"] += 1
+            row["block_ms"].append(time_ms(
+                lambda: bottom_up_probe_cuda(bg.row_ptr, bu, bp, bg.col_idx,
+                                             fw, MAX_POS), reps, flush))
+        b1.append(row)
+    rec["bottom_up_probe"]["layers"] = b1
+
+    roots = sample_roots(g, LANES, seed=SEED + 1)
+    layer, fro, vis, bu_sel, td_sel = sweep_layer_state(g, roots)
+    if not bool((td_sel != 0).any()):   # the top-down form on every lane
+        td_sel = torch.full_like(td_sel, -1)
+    chk = LaneKernelCheck(g)
+    ka, _, fa = chk.bottomup("dist whole graph", fro, ~vis & bu_sel)
+    ta = chk.topdown("dist whole graph", fro, vis, td_sel)
+    lane = dict(layer=layer, bu_lanes=int(unpack_lanes(bu_sel, LANES).sum()),
+                whole_ms=dict(
+                    probe=time_ms(lambda: msbfs_probe_cuda(*ka), reps, flush),
+                    fallback=time_ms(lambda: segment_or_rows_cuda(*fa), reps,
+                                     flush),
+                    topdown=time_ms(lambda: segment_or_rows_cuda(*ta), reps,
+                                    flush)),
+                block_ms=dict(probe=[], fallback=[], topdown=[]))
+    checks = [chk]
+    for blk in blocks:
+        rows = slice(blk.base, blk.base + dg.n_loc)
+        bchk = LaneKernelCheck(blk.g)
+        bvis = vis[rows].contiguous()
+        label = f"dist block {blk.base // dg.n_loc}"
+        ka, _, fa = bchk.bottomup(label, fro, ~bvis & bu_sel)
+        ta = bchk.topdown(label, fro, bvis, td_sel)
+        for form, fn, a in (("probe", msbfs_probe_cuda, ka),
+                            ("fallback", segment_or_rows_cuda, fa),
+                            ("topdown", segment_or_rows_cuda, ta)):
+            lane["block_ms"][form].append(time_ms(lambda: fn(*a), reps,
+                                                  flush))
+        checks.append(bchk)
+    for c in checks:
+        for name in ("msbfs_probe", "segment_or"):
+            rec[name]["cases"] += c.rec[name]["cases"]
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                           c.rec[name]["max_abs_err"])
+    rec["msbfs_probe"]["sweep_layer"] = lane
+    rec["segment_or"]["sweep_layer"] = lane
+    emit("dist_kernel", blocks=DIST_BLOCKS, n_loc=dg.n_loc, m_loc=dg.m_loc,
+         block_slots=[int(b.g.row_ptr[-1]) for b in blocks],
+         probe_root_bottomup_layers=b1, sweep_layer=lane,
+         cases={k: r["cases"] for k, r in rec.items()})
+    return rec
+
+
+def sweep_digests(out) -> dict:
+    """sha256 of every MSBFSResult field, as width_run takes them."""
+    return dict({name: digest(getattr(out, name)) for name in
+                 ("parent", "depth", "num_layers", "edges_traversed")},
+                traces=digest(out.trace_dir, out.trace_vf, out.trace_ef,
+                              out.trace_eu))
+
+
+def dist_sweep_rank(graph_path, num) -> dict:
+    """One NCCL rank of the u64 child: one sweep of ``num`` roots in 64
+    lanes on the sharded engine over a 1-rank mesh, with the launches of
+    that sweep alone and its digests."""
+    dev = rank_device()
+    common.load_library()
+    g = load_graph(graph_path, dev)
+    mesh = host_mesh(1)
+    dg = partition_graph(g, 1)
+    roots = sample_roots(g, num, seed=SEED + 1)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    out = dist_msbfs(dg, roots, mesh, "hybrid", lanes=LANES)
+    torch.cuda.synchronize()
+    return dict(launches=dict(common.LAUNCHES), digests=sweep_digests(out),
+                word_bits=LANE_WORD_BITS)
+
+
+def dist_rank(graph_path, scale, num, reps) -> dict:
+    """The dist phase's rank: one NCCL rank on cuda:0. dist_bfs for Fig.
+    3's 16 roots against the serial bfs; run_graph500(batched=True,
+    mesh=...) at ``num`` and 4x ``num`` roots in 64 lanes, every result
+    field's digest against the host engine's; the sharded and the host
+    harness timed in turns, and the sweep split into the engine's steps
+    and the result; one sweep step by step (wall, host syncs, the two
+    collectives); LaneEngine(mesh=) against LaneEngine(). Each path's
+    launches are counted over its run alone."""
+    dev = rank_device()
+    common.load_library()
+    t0 = time.perf_counter()
+    g = load_graph(graph_path, dev)
+    out = dict(load_seconds=time.perf_counter() - t0, device=str(dev),
+               backend=str(torch.distributed.get_backend()))
+    mesh = host_mesh(1)
+    dg = partition_graph(g, 1)
+
+    roots = sample_roots(g, FIG3_ROOTS, seed=SEED + 1)
+    dist_bfs(dg, int(roots[0]), mesh)               # warm-up
+    torch.cuda.synchronize()
+    common.reset_launches()
+    got, dist_ms = [], []
+    for r in roots:
+        t = time.perf_counter()
+        got.append(dist_bfs(dg, int(r), mesh))
+        torch.cuda.synchronize()
+        dist_ms.append((time.perf_counter() - t) * 1e3)
+    out["bfs_launches"] = dict(common.LAUNCHES)
+    serial_ms = []
+    for r, res in zip(roots, got):
+        t = time.perf_counter()
+        want = bfs(g, int(r), "hybrid")
+        torch.cuda.synchronize()
+        serial_ms.append((time.perf_counter() - t) * 1e3)
+        check(torch.equal(res.parent, want.parent)
+              and torch.equal(res.depth, want.depth)
+              and int(res.num_layers) == int(want.num_layers),
+              f"dist_bfs differs from the serial bfs at root {int(r)}")
+    del got
+    out["bfs"] = dict(roots=len(roots), dist_ms=dist_ms, serial_ms=serial_ms,
+                      dist_ms_median=statistics.median(dist_ms),
+                      serial_ms_median=statistics.median(serial_ms))
+
+    for count in (num, 4 * num):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        res = run_graph500(scale, EDGEFACTOR, mode="hybrid",
+                           num_roots=count, seed=SEED, graph=g, batched=True,
+                           lanes=LANES, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)
+        rts = sample_roots(g, count, seed=SEED + 1)
+        want = sweep_digests(msbfs_pipelined(g, rts, "hybrid", lanes=LANES))
+        have = sweep_digests(dist_msbfs(dg, rts, mesh, "hybrid",
+                                        lanes=LANES))
+        check(have == want, f"the sharded sweep of {count} roots differs "
+                            f"from the host engine: {have} {want}")
+        out[f"sweep_{count}"] = dict(
+            launches=launches, ndev=res.ndev, lanes=res.lanes,
+            sweep_seconds=res.times[0], aggregate_teps=res.aggregate_teps,
+            digests_equal=sorted(want))
+
+    # the analytics engine on the mesh: the same depths as on the card
+    rts = sample_roots(g, num, seed=SEED + 1)
+    want = LaneEngine(g, lanes=LANES).sweep(rts).depth
+    check(torch.equal(LaneEngine(g, mesh=mesh, lanes=LANES).sweep(rts).depth,
+                      want), "LaneEngine(mesh=) differs from LaneEngine()")
+    out["lane_engine_roots"] = num
+    del want
+    # the turns start from an empty allocator cache: the 4x sweeps above
+    # leave it holding their GB-sized blocks
+    torch.cuda.empty_cache()
+    turns = {"host": [], "dist": []}
+    for i in range(DIST_TURNS):
+        for who in (("host", "dist") if i % 2 == 0 else ("dist", "host")):
+            res = run_graph500(scale, EDGEFACTOR, mode="hybrid",
+                               num_roots=num, seed=SEED, graph=g,
+                               batched=True, lanes=LANES, warmup=False,
+                               mesh=mesh if who == "dist" else None)
+            turns[who].append(dict(seconds=res.times[0],
+                                   aggregate_teps=res.aggregate_teps))
+    out["turns"] = turns
+
+    # the same sweep split into the engine's steps and the result (the
+    # parent derivation), each engine in turns
+    rts = sample_roots(g, num, seed=SEED + 1)
+    engines = dict(
+        host=(lambda: msbfs_engine_enqueue(msbfs_engine_init(
+                  g, len(rts), LANES), rts),
+              lambda st: msbfs_engine_drain(g, st),
+              lambda st: msbfs_engine_result(g, st)),
+        dist=(lambda: dist_msbfs_engine_enqueue(dist_msbfs_engine_init(
+                  dg, mesh, len(rts), LANES), rts),
+              lambda st: dist_msbfs_engine_drain(dg, st, mesh),
+              lambda st: dist_msbfs_engine_result(dg, st, mesh)))
+    split = {"host": [], "dist": []}
+    for i in range(DIST_TURNS):
+        for who in (("host", "dist") if i % 2 == 0 else ("dist", "host")):
+            init, drain, result = engines[who]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = drain(init())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            result(st)
+            torch.cuda.synchronize()
+            split[who].append(dict(steps_ms=(t1 - t0) * 1e3,
+                                   result_ms=(time.perf_counter() - t1) * 1e3))
+            del st
+    out["split"] = split
+
+    s = dist_msbfs_engine_enqueue(
+        dist_msbfs_engine_init(dg, mesh, len(rts), LANES), rts)
+    steps = []
+    while not dist_msbfs_engine_idle(s):
+        steps.append(dict(
+            layer=s.sweep_layers,
+            syncs=syncs_of(lambda: dist_msbfs_engine_step(dg, s, mesh)),
+            step_ms=wall_ms(lambda: dist_msbfs_engine_step(dg, s, mesh),
+                            reps)))
+        s = dist_msbfs_engine_step(dg, s, mesh)
+    own = s.frontier[:s.visited.shape[0]]       # a [n_loc, W] row block
+    counters = torch.zeros((3, LANES), dtype=torch.int32, device=dev)
+    exchange_ms = wall_ms(lambda: all_gather(own, s.comm), reps)
+    counters_ms = wall_ms(lambda: psum(counters, s.comm).cpu(), reps)
+    step_ms = statistics.median(r["step_ms"] for r in steps)
+    out["step"] = dict(
+        rows=steps, step_ms_median=step_ms, exchange_ms=exchange_ms,
+        counters_allreduce_readback_ms=counters_ms,
+        compute_ms=step_ms - exchange_ms - counters_ms,
+        syncs_per_step=sorted({r["syncs"] for r in steps}),
+        gathered_bytes=s.comm.size * own.numel() * own.element_size())
+    return out
+
+
+def run_dist(g, args, probe_out) -> dict:
+    """The dist phase: the kernels on the blocks of a 4-way partition here,
+    then the 1-rank NCCL path in a rank of run_ranks, the graph handed over
+    by file. Returns the record the kernels line takes."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=g.device)
+    rec = dist_kernels(g, probe_out, max(args.reps // 4, 3), flush)
+    del flush
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(g, path)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out = run_ranks(dist_rank, 1, path, args.scale, args.roots,
+                        max(args.reps // 4, 3))
+    seconds = time.perf_counter() - t0
+    check(out["bfs_launches"]["bottom_up_probe"] > 0,
+          "bottom_up_probe was not launched by dist_bfs")
+    for count in (args.roots, 4 * args.roots):
+        for name in BATCHED_KERNELS:
+            check(out[f"sweep_{count}"]["launches"][name] > 0,
+                  f"{name} was not launched by the sharded sweep")
+    check(out["step"]["syncs_per_step"] == [1],
+          f"a sharded step makes {out['step']['syncs_per_step']} host syncs")
+    turns = out["turns"]
+    emit("dist", entry="repro_torch.graph.graph500.run_graph500(mesh=)",
+         ranks=1, rank_seconds=seconds, **out,
+         host_sweep_seconds_median=statistics.median(
+             t["seconds"] for t in turns["host"]),
+         dist_sweep_seconds_median=statistics.median(
+             t["seconds"] for t in turns["dist"]),
+         split_ms_median={who: {k: statistics.median(r[k] for r in rows)
+                                for k in ("steps_ms", "result_ms")}
+                          for who, rows in out["split"].items()})
+    rec["bottom_up_probe"]["launches"] = out["bfs_launches"]["bottom_up_probe"]
+    for name in BATCHED_KERNELS:
+        rec[name]["launches"] = {
+            f"sweep_{c}": out[f"sweep_{c}"]["launches"][name]
+            for c in (args.roots, 4 * args.roots)}
+    return rec
 
 
 def main(argv=None) -> int:
@@ -2610,6 +3015,7 @@ def main(argv=None) -> int:
     serve_launches = run_serve(wg, args)
     run_hillclimb(g, args)
     run_serve_bench(wg, args)
+    dist = run_dist(g, args, states)
     u64 = run_u64(wg, args)
 
     kernels = []
@@ -2645,8 +3051,14 @@ def main(argv=None) -> int:
             # launches, its bit-equal cases, its times against the 32-bit
             # kernel on the same planes
             per["u64"] = dict(launches=u64["launches"][name],
+                              dist_launches=u64["dist_launches"][name],
                               bit_equal=True, **u64["kernels"][name],
                               widths=u64["kernel_widths"][name])
+        if name in DIST_KERNELS:
+            # the sharded path: launches on the 1-rank NCCL mesh, and the
+            # kernel on each block of a 4-way partition against the global
+            # frontier (bit-equal; block and whole-graph ms)
+            per["dist"] = dict(bit_equal=True, **dist[name])
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

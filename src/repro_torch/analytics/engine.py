@@ -13,11 +13,19 @@ Built from a ``WeightedCSRGraph`` the engine also serves weighted sweeps:
 same graph, for the ``SSSPQuery`` / ``WeightedClosenessQuery`` workloads.
 Boolean sweeps on a weighted engine ignore the weights.
 
+``ndev > 1`` (on ``host_mesh(ndev)``, gloo for a graph on the CPU) or an
+explicit ``mesh`` (even of one rank) runs the boolean sweeps on the sharded
+engine ``core.dist_msbfs.dist_msbfs`` over a 1-D partition built once at
+construction; results are trimmed to the original vertex count, so callers
+see the same shapes either way. Such an engine is an SPMD program: every
+rank of the process group builds it and runs the same sweeps. Its weighted
+sweeps wait for the distributed SSSP engine (ROADMAP queue A item 9 (c)),
+and the 2-D knobs ``grid`` and ``compress`` for the 2-D engine (item 9
+(b)); both raise ``NotImplementedError``.
+
 ``telemetry`` (a ``repro_torch.obs.Telemetry`` bundle) records every sweep
 as a per-layer ``SweepRecorder`` stream; None keeps every sweep on the
-drain path. The reference's distributed knobs (``ndev > 1``, ``mesh``,
-``grid``, ``compress``) raise ``NotImplementedError`` until the
-distributed engines are ported.
+drain path.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ def pad_roots(roots: np.ndarray, width: int) -> np.ndarray:
 
 class LaneEngine:
     """MS-BFS (and SSSP) sweep runner shared by all analytics, on the
-    graph's device."""
+    graph's device or sharded over a mesh."""
 
     def __init__(self, g: CSRGraph | WeightedCSRGraph, *, ndev: int = 1,
                  mesh=None, grid: tuple[int, int] | None = None,
@@ -62,14 +70,12 @@ class LaneEngine:
         # a repro_torch.obs.Telemetry bundle; None (the default) keeps every
         # sweep on the recorder-off drain path
         self.telemetry = telemetry
-        for name, value in (("ndev > 1", int(ndev) > 1),
-                            ("mesh=", mesh is not None),
-                            ("grid=", grid is not None),
+        for name, value in (("grid=", grid is not None),
                             ("compress=True", compress)):
             if value:
                 raise NotImplementedError(
-                    f"{name} needs the distributed engines, which are not "
-                    f"ported yet (ROADMAP queue A item 9)")
+                    f"{name} needs the 2-D distributed engine, which is not "
+                    f"ported yet (ROADMAP queue A item 9 (b))")
         self.wg = g if isinstance(g, WeightedCSRGraph) else None
         self.g = g.csr if self.wg is not None else g
         self.lanes = lanes
@@ -80,10 +86,22 @@ class LaneEngine:
         # the SSSP lanes' relax_impl; on the card both relax kernels run
         # whatever it says (traversal/sssp.py::_relax)
         self.probe_impl = probe_impl
-        # the one-device partition, as the results' metadata records it
-        self.ndev = 1
         self.grid = None
         self.compress = False
+        self.mesh = mesh
+        self.dg = None
+        if mesh is not None:
+            ndev = mesh.mesh.numel()
+        # the partition, as the results' metadata records it
+        self.ndev = max(int(ndev), 1)
+        # an explicit mesh takes the sharded path even at one rank: the
+        # caller asked for that path
+        if self.ndev > 1 or mesh is not None:
+            from repro_torch.core.dist_msbfs import host_mesh, partition_graph
+            if self.mesh is None:
+                self.mesh = host_mesh(
+                    self.ndev, "cpu" if self.g.device.type == "cpu" else None)
+            self.dg = partition_graph(self.g, self.ndev)
 
     @property
     def n(self) -> int:
@@ -117,6 +135,13 @@ class LaneEngine:
         roots = np.asarray(roots, np.int32).reshape(-1)
         if roots.size < 1:
             raise ValueError("need at least one root")
+        if self.dg is not None:
+            from repro_torch.core.dist_msbfs import dist_msbfs
+            return dist_msbfs(self.dg, roots, self.mesh, self.mode,
+                              self.alpha, self.beta, self.max_pos,
+                              lanes=self.lanes_for(roots.size),
+                              derive_parents=derive_parents,
+                              recorder=self._recorder("dist_msbfs"))
         return msbfs_pipelined(self.g, roots, mode=self.mode,
                                alpha=self.alpha, beta=self.beta,
                                max_pos=self.max_pos,
@@ -147,6 +172,11 @@ class LaneEngine:
                 "LaneEngine from a WeightedCSRGraph (e.g. "
                 "graph.generator.rmat_weighted_graph) to serve "
                 "sssp/weighted-closeness queries")
+        if self.dg is not None:
+            raise NotImplementedError(
+                "weighted sweeps on a distributed engine need the sharded "
+                "SSSP engine (dist_sssp), which is not ported yet (ROADMAP "
+                "queue A item 9 (c))")
         roots = np.asarray(roots, np.int32).reshape(-1)
         if roots.size < 1:
             raise ValueError("need at least one source")

@@ -83,8 +83,9 @@ def main(argv=None):
     ap.add_argument("--edgefactor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ndev", type=int, default=1,
-                    help="devices; above 1 raises until the distributed "
-                         "engines are ported")
+                    help="devices; above 1 the engine is sharded, and "
+                         "every rank of a process group of that size runs "
+                         "the bench (launch it with run_ranks or torchrun)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the GPU (raises without one)")
     ap.add_argument("--json", default=None, help="also write the points")

@@ -22,6 +22,14 @@ switch, the traces, the finish test and the traversed-edge count.
 
 Parents are derived once at the end from the depths (min-id neighbour one
 level up), which equals the serial ``bfs`` parents exactly.
+
+The pipelined engine also runs sharded (``core/dist_msbfs.py``): a state
+whose ``comm`` names a mesh group holds the rank's row block of the
+row-indexed arrays (from global row ``base``) and the replicated frontier.
+The step then runs the packed step on the rank's block of the graph,
+gathers the ranks' new rows into the next frontier and sums the counters
+over the ranks before the one read-back, so the host control is the same
+on every rank.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr import CSRGraph
+from repro_torch.core.exchange import all_gather, psum
 from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT, MAX_TRACE
 from repro_torch.core.packed import (LANE_WORD_BITS, MODES, depth_slice_words,
                                      dispatch_packed_step, host_word_dtype,
@@ -74,11 +83,11 @@ def _as_roots(roots) -> np.ndarray:
     return np.asarray(roots).astype(np.int32).reshape(-1)
 
 
-def _seat(words: torch.Tensor, depth: torch.Tensor, roots: np.ndarray,
-          lanes: np.ndarray) -> np.ndarray:
-    """Set bit ``lane`` of row ``root`` in ``words`` and depth 0 at
-    (root, lane), in place, for roots inside [0, n) (the reference's one-hot
-    seat has no bit for others). Returns the host mask of the roots seated."""
+def _seat_words(words: torch.Tensor, roots: np.ndarray,
+                lanes: np.ndarray) -> np.ndarray:
+    """Set bit ``lane`` of row ``root`` in ``words``, in place, for roots
+    inside [0, n) (the reference's one-hot seat has no bit for others).
+    Returns the host mask of the roots seated."""
     n = words.shape[0]
     keep = (roots >= 0) & (roots < n)
     roots, lanes = roots[keep].astype(np.int64), lanes[keep].astype(np.int64)
@@ -92,7 +101,24 @@ def _seat(words: torch.Tensor, depth: torch.Tensor, roots: np.ndarray,
         flat = words.view(-1)
         flat.index_copy_(0, idx, flat.index_select(0, idx)
                          | to_device(signed_words(bits), dev))
-        depth[to_device(roots, dev), to_device(lanes, dev)] = 0
+    return keep
+
+
+def _seat_depth(depth: torch.Tensor, rows: np.ndarray,
+                lanes: np.ndarray) -> None:
+    """Depth 0 at (row, lane), in place, through the flat index: an
+    indexed assignment of a scalar would make the host wait for the
+    device."""
+    if rows.size:
+        flat = rows.astype(np.int64) * depth.shape[1] + lanes
+        depth.view(-1).index_fill_(0, to_device(flat, depth.device), 0)
+
+
+def _seat(words: torch.Tensor, depth: torch.Tensor, roots: np.ndarray,
+          lanes: np.ndarray) -> np.ndarray:
+    """``_seat_words``, and depth 0 at (root, lane) for the roots seated."""
+    keep = _seat_words(words, roots, lanes)
+    _seat_depth(depth, roots[keep], lanes[keep])
     return keep
 
 
@@ -158,36 +184,43 @@ def msbfs(g: CSRGraph, roots, mode: str = "hybrid",
                        trace_ef=tr[2], trace_eu=tr[3])
 
 
-def _derive_parents(g: CSRGraph, depth: torch.Tensor,
-                    roots) -> torch.Tensor:
-    """parent[v, r] = min-id neighbour of v one level up in lane r.
+def _derive_parents(g: CSRGraph, depth: torch.Tensor, roots,
+                    base: int = 0) -> torch.Tensor:
+    """parent[v, r] = min-id neighbour of v one level up in lane r, for the
+    rows [base, base + g.n) of the global ``depth`` [n, R]: the whole graph,
+    or a rank's block of it (whose pad slots name the sentinel n and so
+    never win).
 
     Chunked over lanes to bound the [m, chunk] candidate buffers (four
     int32 and one bool, about 5 GB at 2^25 edge slots and 8 lanes). The
     min goes through ``index_reduce_`` with the 1-D row index, so no
     [m, chunk] int64 index is built. Min-id matches the serial steps'
-    deterministic scatter-min parent choice."""
-    n = g.n
+    deterministic scatter-min parent choice. A root is seated only in the
+    rows that hold it."""
+    n, n_loc = depth.shape[0], g.n
     roots = _as_roots(roots)
     num_roots = roots.shape[0]
     src, col = g.src_idx, g.col_idx
-    parent = torch.empty((n, num_roots), dtype=torch.int32, device=g.device)
+    colc = col.clamp(max=n - 1)
+    parent = torch.empty((n_loc, num_roots), dtype=torch.int32,
+                         device=g.device)
     for lo in range(0, num_roots, PARENT_LANE_CHUNK):
         d = depth[:, lo:lo + PARENT_LANE_CHUNK]
-        d_col = d.index_select(0, col)                      # [m, c]
-        ok = (d_col >= 0) & (d_col + 1 == d.index_select(0, src))
+        d_col = d.index_select(0, colc)                     # [m, c]
+        ok = (d_col >= 0) & (d_col + 1 == d[base:base + n_loc].index_select(
+            0, src))
         del d_col
         cand = torch.where(ok, col[:, None], n).to(torch.int32)
         del ok
-        best = torch.full((n, d.shape[1]), n, dtype=torch.int32,
+        best = torch.full((n_loc, d.shape[1]), n, dtype=torch.int32,
                           device=g.device)
         best.index_reduce_(0, src, cand, "amin")
         del cand
         parent[:, lo:lo + PARENT_LANE_CHUNK] = torch.where(best < n, best, -1)
-    keep = (roots >= 0) & (roots < n)
+    keep = (roots >= base) & (roots < base + n_loc)
     lanes = np.arange(num_roots)[keep]
     if lanes.size:
-        parent[to_device(roots[keep].astype(np.int64), g.device),
+        parent[to_device((roots[keep] - base).astype(np.int64), g.device),
                to_device(lanes, g.device)] = to_device(roots[keep], g.device)
     return parent
 
@@ -209,6 +242,9 @@ def _derive_parents(g: CSRGraph, depth: torch.Tensor,
 # where the reference scatters the rows of lanes that did not finish. The
 # port writes only the lanes that do, so that column is never written, and
 # columns [0, capacity) equal the reference's.
+# A sharded state (comm set) holds rows [base, base + n_loc) of visited,
+# depth and out_depth and the whole frontier; the counters, the degrees and
+# all host control are global and the same on every rank.
 # ---------------------------------------------------------------------------
 
 
@@ -233,6 +269,8 @@ class PipelineState(NamedTuple):
     counters: np.ndarray | None = None  # int32[3, L] (e_f, v_f, e_u); None = not read yet
     deg: np.ndarray | None = None       # host int32[n] degrees; None = not read yet
     deg_total: int = 0                  # sum of deg (an idle lane's e_u)
+    base: int = 0                       # global row of visited/depth row 0
+    comm: object = None                 # mesh group (MeshComm); None = one device
 
     @property
     def num_lanes(self) -> int:
@@ -248,34 +286,39 @@ def msbfs_engine_init(g: CSRGraph, capacity: int,
     """Fresh engine on the graph's device: all lanes idle, an empty root
     queue of ``capacity`` slots, ``lanes`` bit-lanes (W =
     ceil(lanes / LANE_WORD_BITS) lane words per vertex)."""
+    return _fresh_state(g.deg.cpu().numpy(), g.n, g.device, capacity, lanes)
+
+
+def _fresh_state(deg: np.ndarray, n_loc: int, dev, capacity: int,
+                 lanes: int, base: int = 0, comm=None) -> PipelineState:
+    """An idle engine over the host degrees ``deg`` [n] whose row arrays
+    hold ``n_loc`` rows from global row ``base`` (all n on one device)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     if lanes < 1:
         raise ValueError(f"lanes must be >= 1, got {lanes}")
-    n, dev = g.n, g.device
-    cap = capacity
-    deg = g.deg.cpu().numpy()
+    n, cap, w = deg.shape[0], capacity, num_lane_words(lanes)
     deg_total = int(deg.sum(dtype=np.int64))
     counters = np.zeros((3, lanes), np.int32)
     counters[2] = deg_total
     return PipelineState(
-        frontier=torch.zeros((n, num_lane_words(lanes)), dtype=word_dtype(),
-                             device=dev),
-        visited=torch.zeros((n, num_lane_words(lanes)), dtype=word_dtype(),
-                            device=dev),
-        depth=torch.full((n, lanes), -1, dtype=torch.int32, device=dev),
+        frontier=torch.zeros((n, w), dtype=word_dtype(), device=dev),
+        visited=torch.zeros((n_loc, w), dtype=word_dtype(), device=dev),
+        depth=torch.full((n_loc, lanes), -1, dtype=torch.int32, device=dev),
         lane_layer=np.zeros(lanes, np.int32),
         lane_qidx=np.full(lanes, cap, np.int32),
         topdown=np.ones(lanes, bool),
         queue=np.zeros(cap, np.int32), queued=0, next_root=0, sweep_layers=0,
-        out_depth=torch.full((n, cap + 1), -1, dtype=torch.int32, device=dev),
+        out_depth=torch.full((n_loc, cap + 1), -1, dtype=torch.int32,
+                             device=dev),
         out_edges=np.zeros(cap + 1, np.int32),
         out_layers=np.zeros(cap + 1, np.int32),
         trace_dir=np.full((MAX_TRACE, cap + 1), -1, np.int32),
         trace_vf=np.zeros((MAX_TRACE, cap + 1), np.int32),
         trace_ef=np.zeros((MAX_TRACE, cap + 1), np.int32),
         trace_eu=np.zeros((MAX_TRACE, cap + 1), np.int32),
-        counters=counters, deg=deg, deg_total=deg_total)
+        counters=counters, deg=deg, deg_total=deg_total, base=base,
+        comm=comm)
 
 
 def pipeline_state_from_numpy(fields: dict, device=None) -> PipelineState:
@@ -332,6 +375,17 @@ def _idle_counters(counters: np.ndarray, deg_total: int,
     return counters
 
 
+def _global_rows(s: PipelineState, rows: torch.Tensor) -> torch.Tensor:
+    """A row-indexed device array of the state in global row order: the
+    array itself on one device, the ranks' blocks gathered in mesh order on
+    a mesh (a collective)."""
+    if s.comm is None:
+        return rows
+    if rows.shape[1] == 0:
+        return rows.new_zeros((s.comm.size * rows.shape[0], 0))
+    return all_gather(rows.contiguous(), s.comm).reshape(-1, rows.shape[1])
+
+
 def msbfs_engine_enqueue(state: PipelineState, roots) -> PipelineState:
     """Append roots to the pending queue (host only, mid-sweep safe); they
     land in idle lanes on the next ``msbfs_engine_step``."""
@@ -357,8 +411,9 @@ def _refill(g: CSRGraph, s: PipelineState,
     """Claim pending queue slots for idle lanes and seat their roots.
 
     Idle lanes have zero bits and -1 depths, so seating sets one bit and
-    one depth per claimed lane; nothing is done when no lane is idle or no
-    root is pending."""
+    one depth per claimed lane: the frontier bit on every rank, the depth
+    on the root's owner. Nothing is done when no lane is idle or no root is
+    pending."""
     cap = s.capacity
     if not ((s.lane_qidx >= cap).any() and s.next_root < s.queued):
         return s
@@ -366,17 +421,19 @@ def _refill(g: CSRGraph, s: PipelineState,
                                      s.queue)
     lanes = np.flatnonzero(claim)
     roots = root[lanes]
-    frontier, visited, depth = s.frontier, s.visited, s.depth
-    seated = _seat(frontier, depth, roots, lanes)
+    seated = _seat_words(s.frontier, roots, lanes)
+    rows = slice(s.base, s.base + s.depth.shape[0])
+    own = seated & (roots >= rows.start) & (roots < rows.stop)
+    _seat_depth(s.depth, roots[own] - rows.start, lanes[own])
     # frontier is inside visited, so this adds exactly the fresh bits
-    visited = visited | frontier
+    visited = s.visited | s.frontier[rows]
     counters = _idle_counters(s.counters, s.deg_total, lanes)
     d = s.deg[roots[seated]]
     counters[0, lanes[seated]] = d
     counters[1, lanes[seated]] = 1
     counters[2, lanes[seated]] -= d
     return s._replace(
-        frontier=frontier, visited=visited, depth=depth,
+        visited=visited,
         lane_layer=np.where(claim, 0, s.lane_layer).astype(np.int32),
         lane_qidx=np.where(claim, cand, s.lane_qidx).astype(np.int32),
         topdown=np.where(claim, topdown_init, s.topdown),
@@ -395,11 +452,16 @@ def _plan(s: PipelineState, mode: str, n: int, alpha: float, beta: float):
 
 
 def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
-                   beta: float, max_pos: int) -> PipelineState:
+                   beta: float, max_pos: int,
+                   n: int | None = None) -> PipelineState:
     """One engine step: refill idle lanes, advance one layer, flush the
     lanes that finished. Reads the device back once, for the counters of
-    the new state."""
-    n, dev = g.n, g.device
+    the new state. ``g`` is the graph, or the rank's block of it for a
+    sharded state, whose new rows are gathered into the next frontier and
+    whose counters are summed over the ranks. ``n`` is the vertex count of
+    the switch rule (default ``g.n``)."""
+    n = g.n if n is None else n
+    dev = g.device
     lanes = s.num_lanes
     cap = s.capacity
     s = _refill(g, _with_host_view(g, s), mode != "bottomup")
@@ -427,7 +489,13 @@ def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
     lane_layer2 = (s.lane_layer + active).astype(np.int32)
     depth2 = torch.where(new_b, to_device(lane_layer2, dev)[None, :], s.depth)
     counters = torch.stack(lane_counters(
-        g, new_b, unpack_lanes(visited2, lanes))).cpu().numpy()
+        g, new_b, unpack_lanes(visited2, lanes)))
+    # on a mesh the ranks own disjoint rows: their new rows in mesh order
+    # are the next frontier, and the counters are the ranks' sums
+    frontier = _global_rows(s, new)
+    if s.comm is not None:
+        counters = psum(counters, s.comm)
+    counters = counters.cpu().numpy()
 
     # finish = frontier drained or the per-lane layer cap (the serial loop
     # bound, and what makes the drain terminate)
@@ -446,11 +514,11 @@ def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
         # retire the finished lanes: zero their bits and depths so that
         # _refill can seat a fresh root on the very next step
         clear = to_device(~pack_lanes_np(finished), dev)
-        new, visited2 = new & clear, visited2 & clear
+        frontier, visited2 = frontier & clear, visited2 & clear
         depth2.index_fill_(1, done_t, -1)
         counters = _idle_counters(counters, s.deg_total, done)
     return s._replace(
-        frontier=new, visited=visited2, depth=depth2,
+        frontier=frontier, visited=visited2, depth=depth2,
         lane_layer=np.where(finished, 0, lane_layer2).astype(np.int32),
         lane_qidx=np.where(finished, cap, s.lane_qidx).astype(np.int32),
         topdown=topdown, sweep_layers=s.sweep_layers + 1,
@@ -487,12 +555,15 @@ def msbfs_engine_result(g: CSRGraph, state: PipelineState,
     """An ``MSBFSResult`` over the enqueued queue slots, on the graph's
     device. Columns of unanswered slots (``out_layers == 0``) hold init
     values; callers normally drain first. ``derive_parents=False`` returns
-    a zero-width ``parent``."""
+    a zero-width ``parent``. A sharded state's rows are gathered into
+    global order (every rank calls it, with its block of the graph)."""
     r = state.queued
     dev = g.device
-    depth = state.out_depth[:, :r].contiguous()
-    parent = (_derive_parents(g, depth, state.queue[:r]) if derive_parents
-              else torch.zeros((g.n, 0), dtype=torch.int32, device=dev))
+    depth = _global_rows(state, state.out_depth[:, :r].contiguous())
+    parent = (_global_rows(state, _derive_parents(
+                  g, depth, state.queue[:r], state.base)) if derive_parents
+              else torch.zeros((depth.shape[0], 0), dtype=torch.int32,
+                               device=dev))
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a[..., :r])).to(dev)
@@ -552,12 +623,14 @@ class LayerReadout(NamedTuple):
 
 
 def msbfs_engine_readout(state: PipelineState) -> LayerReadout:
-    """Snapshot the streaming read-out surface (host copies)."""
+    """Snapshot the streaming read-out surface (host copies; a sharded
+    state's rows gathered into global order, on every rank)."""
     return LayerReadout(
         layer=state.sweep_layers, capacity=state.capacity,
         lane_qidx=state.lane_qidx.copy(), lane_layer=state.lane_layer.copy(),
-        depth=state.depth.to("cpu", copy=True).numpy(),
-        out_depth=state.out_depth.to("cpu", copy=True).numpy(),
+        depth=_global_rows(state, state.depth).to("cpu", copy=True).numpy(),
+        out_depth=_global_rows(state, state.out_depth).to(
+            "cpu", copy=True).numpy(),
         out_layers=state.out_layers.copy())
 
 

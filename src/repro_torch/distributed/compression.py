@@ -1,0 +1,105 @@
+"""Collective-payload compression: the packed frontier-word codec.
+
+Port of the frontier-word half of ``repro.distributed.compression``. The
+2-D exchange ships per-device slices of packed lane words every layer, and
+sparse frontiers are mostly zero words. ``compress_words`` packs the nonzero
+words of a slice into (flat index, payload) pairs inside a fixed
+``budget``-slot buffer, and ``decompress_words`` scatters them back. Pad
+slots carry ``(0, 0)``, so decompression is exact whenever ``count <=
+budget``; the exchange falls back to the dense form otherwise
+(``sparse_budget``, ``DENSE_THRESHOLD``).
+
+Words are the port's signed bit patterns (int32, or int64 at 64-bit lane
+words). The reference max-scatters its unsigned payloads, which a signed
+word with the top bit set would lose against a pad slot's 0; the port
+scatters only the nonzero payloads, which gives the same bits.
+
+The value codec (``values_finite``, ``compress_values``,
+``decompress_values``) comes with the distributed SSSP engine (ROADMAP queue
+A item 9 (c)), and the gradient codec with the distributed trainer (item 9
+(d)).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["DENSE_THRESHOLD", "compress_words", "decompress_words",
+           "sparse_budget", "words_nnz", "wire_bytes"]
+
+# the sparse form wins while at most this fraction of words is nonzero: a
+# sparse slot costs an int32 index and the word, so at 4-byte words the
+# break-even is 50 % density; 25 % leaves room for the count header and
+# keeps the switch conservative at 8-byte words
+DENSE_THRESHOLD = 0.25
+
+_IDX_BYTES = 4      # int32 flat word index per sparse slot
+_COUNT_BYTES = 4    # int32 nonzero-count header per sparse message
+
+
+def sparse_budget(num_words: int, threshold: float = DENSE_THRESHOLD) -> int:
+    """Sparse-buffer slots for a ``num_words``-word slice: at most
+    ``floor(num_words * threshold)`` nonzero words (at least 1). A slice
+    with more nonzero words ships dense."""
+    if num_words < 1:
+        raise ValueError(f"need at least one word, got {num_words}")
+    return max(1, int(num_words * threshold))
+
+
+def words_nnz(words: torch.Tensor) -> torch.Tensor:
+    """Nonzero-word count of a word slice (any shape): int32 scalar."""
+    return (words.reshape(-1) != 0).sum(dtype=torch.int32)
+
+
+def compress_words(words: torch.Tensor, budget: int):
+    """Pack the nonzero words of ``words`` (any shape, flattened row-major)
+    into a ``budget``-slot sparse buffer.
+
+    Returns ``(idx int32[budget], payload[budget], count int32)``: the
+    first ``min(count, budget)`` slots hold the flat indices and words of
+    the leading nonzero words in ascending index order, pad slots hold
+    ``(0, 0)``. ``count`` is the true nonzero total and may exceed
+    ``budget``. No host sync: each nonzero word's slot is its rank among
+    the nonzero words (a prefix sum), and words past the budget go to a
+    discarded slot."""
+    flat = words.reshape(-1)
+    total = flat.shape[0]
+    if budget < 1 or budget > total:
+        raise ValueError(f"budget must be in [1, {total}], got {budget}")
+    nz = flat != 0
+    rank = torch.cumsum(nz, 0, dtype=torch.int64) - 1
+    slot = torch.where(nz & (rank < budget), rank, budget)
+    dev = flat.device
+    idx = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, slot, torch.arange(total, dtype=torch.int32, device=dev))
+    payload = torch.zeros(budget + 1, dtype=flat.dtype, device=dev)
+    payload.scatter_(0, slot, flat)
+    count = nz.sum(dtype=torch.int32)
+    valid = torch.arange(budget, device=dev) < count
+    return (torch.where(valid, idx[:budget], 0),
+            torch.where(valid, payload[:budget], 0), count)
+
+
+def decompress_words(idx: torch.Tensor, payload: torch.Tensor,
+                     num_words: int) -> torch.Tensor:
+    """Scatter a sparse buffer back into a flat ``num_words`` word array.
+
+    Real slots hold unique indices and nonzero words; pad slots hold
+    ``(0, 0)`` and are dropped, so a real word at index 0 survives whatever
+    its sign."""
+    target = torch.where(payload != 0, idx.long(), num_words)
+    flat = torch.zeros(num_words + 1, dtype=payload.dtype,
+                       device=payload.device)
+    flat.scatter_(0, target, payload)
+    return flat[:num_words]
+
+
+def wire_bytes(count, num_words: int, budget: int, itemsize: int):
+    """Bytes a slice costs on the wire under the density switch: the sparse
+    form (count header and an index and a word per nonzero word) while
+    ``count <= budget``, every word otherwise. ``count`` may be a tensor,
+    and the result is then an int32 tensor, or a host int."""
+    sparse = _COUNT_BYTES + count * (_IDX_BYTES + itemsize)
+    dense = num_words * itemsize
+    if isinstance(count, torch.Tensor):
+        return torch.where(count <= budget, sparse, dense).to(torch.int32)
+    return sparse if count <= budget else dense

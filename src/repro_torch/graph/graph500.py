@@ -10,7 +10,10 @@ sweep of the pipelined multi-source engine (``core/msbfs.py``): roots
 beyond the ``lanes`` bit-lane pool wait in the engine's queue and refill
 lanes as traversals finish. Per-root wall time is then the shared sweep
 time, and ``aggregate_teps`` (total edges over total wall time) is the
-number to compare with the serial loop.
+number to compare with the serial loop. With ``ndev > 1`` or a ``mesh`` the
+sweep runs the sharded engine (``core/dist_msbfs.py``) over
+``partition_graph(g, ndev)``: an SPMD program, so every rank of the process
+group calls ``run_graph500`` with the same arguments.
 
 TEPS counts the *undirected* edges of the traversed component (sum of
 degrees of reached vertices / 2), per the Graph500 spec. Each root's time
@@ -89,14 +92,16 @@ def run_graph500(scale: int, edgefactor: int, mode: str = "hybrid",
                  warmup: bool = True, skip_empty_fallback: bool = True,
                  td_impl: str = "edge", graph: CSRGraph | None = None,
                  batched: bool = False, lanes: int | None = MAX_LANES,
-                 ndev: int = 1, device=None) -> Graph500Result:
+                 ndev: int = 1, mesh=None, device=None) -> Graph500Result:
     """Graph500 run on ``device`` (the GPU unless the caller passes
     another; ``graph`` brings its own device): one BFS per root, or with
-    ``batched=True`` one pipelined multi-source sweep over all roots."""
-    if ndev > 1:
-        raise NotImplementedError(
-            "ndev > 1 needs the sharded multi-source engine, which is not "
-            "ported yet (ROADMAP queue A item 9)")
+    ``batched=True`` one pipelined multi-source sweep over all roots.
+    ``ndev > 1`` (on ``host_mesh(ndev)``) or a ``DeviceMesh`` (even of one
+    rank) runs that sweep sharded; the serial harness has no distributed
+    form."""
+    if (ndev > 1 or mesh is not None) and not batched:
+        raise ValueError("ndev > 1 requires batched=True (the sharded "
+                         "engine is the MS-BFS one)")
     if graph is None:
         g = rmat_graph(scale, edgefactor, seed, device=resolve_device(device))
     else:
@@ -109,7 +114,7 @@ def run_graph500(scale: int, edgefactor: int, mode: str = "hybrid",
                 "batched=True does not support td_impl/skip_empty_fallback "
                 "(the MS-BFS sweep has its own step formulations)")
         return _run_batched(g, roots, scale, edgefactor, mode, alpha, beta,
-                            max_pos, warmup, validate, lanes)
+                            max_pos, warmup, validate, lanes, ndev, mesh)
     res = Graph500Result(scale=scale, edgefactor=edgefactor, mode=mode,
                          device=device_name(dev),
                          roots=[int(r) for r in roots])
@@ -139,25 +144,47 @@ def run_graph500(scale: int, edgefactor: int, mode: str = "hybrid",
 
 def _run_batched(g: CSRGraph, roots: np.ndarray, scale: int, edgefactor: int,
                  mode: str, alpha: float, beta: float, max_pos: int,
-                 warmup: bool, validate: bool,
-                 lanes: int | None) -> Graph500Result:
+                 warmup: bool, validate: bool, lanes: int | None,
+                 ndev: int = 1, mesh=None) -> Graph500Result:
     """All roots in one pipelined multi-source sweep. ``lanes=None`` (or 0)
     sizes the lane pool from the root count and the graph's degree
     (``adaptive_lane_pool``). The timed sweep covers the engine and the
     parent derivation and ends with a device sync. The result's ``mode`` is
     the multi-source controller that ran (there is no packed non-SIMD
-    variant)."""
+    variant).
+
+    ``ndev > 1`` or a ``mesh`` runs the sharded engine over a 1-D
+    partition of ``g`` (one block per rank, built on the host), on this
+    rank's device; the mesh is ``host_mesh(ndev)`` on the graph's device
+    type when none is given."""
     msbfs_mode = _BATCHED_MODE[mode]
     if not lanes:
         lanes = adaptive_lane_pool(len(roots), g.n, g.m)
     dev = g.device
+    if ndev > 1 or mesh is not None:
+        from repro_torch.core.dist_bfs import mesh_device
+        from repro_torch.core.dist_msbfs import (dist_msbfs, host_mesh,
+                                                 partition_graph)
+        from repro_torch.core.exchange import mesh_comm
+        if mesh is None:
+            mesh = host_mesh(ndev, "cpu" if dev.type == "cpu" else None)
+        ndev = mesh.mesh.numel()
+        dg = partition_graph(g, ndev)
+        dev = mesh_device(mesh)
+        # the rank's block goes to its device here, outside the timing, as
+        # the host engine's graph is on its device before the timing
+        dg.local(mesh_comm(mesh).index, dev)
 
-    def run():
-        return msbfs_pipelined(g, roots, msbfs_mode, alpha, beta, max_pos,
-                               lanes)
+        def run():
+            return dist_msbfs(dg, roots, mesh, msbfs_mode, alpha, beta,
+                              max_pos, lanes=lanes)
+    else:
+        def run():
+            return msbfs_pipelined(g, roots, msbfs_mode, alpha, beta,
+                                   max_pos, lanes)
 
     res = Graph500Result(scale=scale, edgefactor=edgefactor, mode=msbfs_mode,
-                         batched=True, lanes=lanes, ndev=1,
+                         batched=True, lanes=lanes, ndev=ndev,
                          device=device_name(dev),
                          roots=[int(r) for r in roots])
     if warmup:

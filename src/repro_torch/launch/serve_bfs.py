@@ -26,8 +26,8 @@ retired back to the pool. This module provides:
 
 ``--device`` is the torch device of the graph and the engines: the GPU
 unless given (it raises without one); ``--device cpu`` takes the kernels'
-plain PyTorch versions. ``--ndev > 1`` raises until the distributed
-engines are ported.
+plain PyTorch versions. ``--ndev > 1`` raises until the sharded pools
+are ported (ROADMAP queue A item 9 (c)).
 
 ``--listen PORT`` switches to the LIVE path: the service runs its worker
 thread, an ``ObservabilityServer`` exposes /metrics, /healthz, /readyz,
@@ -205,7 +205,7 @@ def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
     lane flush — the validator needs complete depth columns and BFS-tree
     parents), ``lanes=0`` adaptive pool sizing, ``delta=None`` the
     weighted default. ``ndev > 1`` raises until the sharded pools are
-    ported."""
+    ported (ROADMAP queue A item 9 (c))."""
     wg = g if isinstance(g, WeightedCSRGraph) else None
     num_req = len(requests)
     if num_req < 1:
@@ -286,7 +286,7 @@ def main(argv=None):
                          "depth + degree stats")
     ap.add_argument("--ndev", type=int, default=1,
                     help="shard the engine over this many devices (only 1 "
-                         "until the distributed engines are ported)")
+                         "until the sharded pools are ported)")
     ap.add_argument("--queries", type=int, default=64,
                     help="number of requests (a closeness request costs "
                          "--closeness-sources lanes)")
@@ -357,8 +357,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.ndev > 1:
         raise NotImplementedError(
-            "--ndev > 1 needs the sharded lane pools (dist_msbfs, "
-            "dist_sssp), which are not ported yet (ROADMAP queue A item 9)")
+            "--ndev > 1 needs the sharded lane pools, whose tropical pool "
+            "runs the distributed SSSP engine (dist_sssp), which is not "
+            "ported yet (ROADMAP queue A item 9 (c))")
     if args.validate and (args.metrics_out or args.trace_out
                           or args.listen is not None or args.flight_out
                           or args.doctor_out):

@@ -39,9 +39,10 @@ as ``run_query``, so every answer the service produces is parity-checked
 against the offline path by construction.
 
 In the port the pools are the host engines on the graph's device (the
-reference's sharded pools wait for the distributed engines: ``ndev > 1``
-raises). A service built on a CUDA graph runs the CUDA kernels through the
-engines, or raises; nothing falls back to the plain versions on the card.
+reference's sharded pools wait for the distributed SSSP engine, ROADMAP
+queue A item 9 (c): ``ndev > 1`` raises). A service built on a CUDA graph
+runs the CUDA kernels through the engines, or raises; nothing falls back
+to the plain versions on the card.
 The per-layer read-out copies the live depth columns and the flushed
 columns to the host (``msbfs_engine_readout``), as the reference's
 ``LayerReadout`` does.
@@ -346,9 +347,9 @@ class AnalyticsService:
                 f"config plus {sorted(overrides)}")
         if config.ndev > 1:
             raise NotImplementedError(
-                "ndev > 1 needs the sharded lane pools (dist_msbfs, "
-                "dist_sssp), which are not ported yet (ROADMAP queue A "
-                "item 9)")
+                "ndev > 1 needs the sharded lane pools, whose tropical "
+                "pool runs the distributed SSSP engine (dist_sssp), which "
+                "is not ported yet (ROADMAP queue A item 9 (c))")
         self.config = config
         self.telemetry = config.telemetry
         # metrics always work (metrics_text() on a bare service exposes

@@ -200,12 +200,16 @@ def test_as_engine_refuses_overrides(graphs):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(ndev=2), 9), (dict(mesh=object()), 9), (dict(grid=(2, 1)), 9),
-    (dict(compress=True), 9)])
-def test_unported_engine_knobs_raise(graphs, kwargs, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}"):
+@pytest.mark.parametrize("kwargs,exc,match", [
+    # the sharded engine runs on the ranks of a process group; without one
+    # it says how to launch
+    (dict(ndev=2), RuntimeError, "run_ranks"),
+    (dict(grid=(2, 1)), NotImplementedError, r"queue A item 9 \(b\)"),
+    (dict(compress=True), NotImplementedError, r"queue A item 9 \(b\)"),
+    (dict(grid=(2, 2), ndev=4), NotImplementedError,
+     r"queue A item 9 \(b\)")])
+def test_unported_engine_knobs_raise(graphs, kwargs, exc, match):
+    with pytest.raises(exc, match=match):
         ta.LaneEngine(graphs["path"].g, **kwargs)
 
 
@@ -297,7 +301,9 @@ def test_analytics_bench_main_on_cpu(capsys):
 
 
 def test_analytics_bench_ndev_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    """``--ndev 2`` shards the engine, which runs on the ranks of a
+    process group: outside one it raises and says how to launch."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         analytics_bench.bench_points(6, device="cpu", ndev=2)
 
 

@@ -132,7 +132,7 @@ def test_serve_bench_matches_reference():
 
 
 def test_serve_bench_ndev_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match=r"item 9 \(c\)"):
         serve_bench.bench_points(8, queries=4, ndev=2, device="cpu")
 
 

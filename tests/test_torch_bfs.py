@@ -206,9 +206,13 @@ def test_run_graph500_matches_reference_harness():
     assert s["nroots"] == 4 and s["harmonic_mean_teps"] > 0
 
 
-@pytest.mark.parametrize("kw", [dict(batched=True, ndev=2), dict(ndev=2)])
-def test_run_graph500_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+@pytest.mark.parametrize("kw,exc,match", [
+    # the sharded sweep needs the ranks of a process group
+    (dict(batched=True, ndev=2), RuntimeError, "run_ranks"),
+    # as in the reference, the serial harness has no distributed form
+    (dict(ndev=2), ValueError, "requires batched=True")])
+def test_run_graph500_unported_paths_raise(kw, exc, match):
+    with pytest.raises(exc, match=match):
         run_graph500(6, 4, num_roots=2, device="cpu", **kw)
 
 

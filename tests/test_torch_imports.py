@@ -19,9 +19,9 @@ from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
                                          uniform_random_graph,
                                          uniform_random_weighted_graph)
 from repro_torch.graph.graph500 import run_graph500
-from repro_torch.benchmarks import (analytics_bench, fig3_teps, sssp_teps,
-                                    table2_switching, table3_maxpos,
-                                    table4_counters)
+from repro_torch.benchmarks import (analytics_bench, dist_msbfs_teps,
+                                    fig3_teps, sssp_teps, table2_switching,
+                                    table3_maxpos, table4_counters)
 from repro_torch.configs.reduced import reduce_arch
 from repro_torch.data.pipeline import gnn_batch
 from repro_torch.launch import bfs as launch_bfs
@@ -79,7 +79,10 @@ def test_port_files_are_found():
             "obs/traceviz.py", "obs/slo.py", "obs/doctor.py",
             "obs/server.py", "serving/__init__.py", "serving/stats.py",
             "serving/admission.py", "serving/trace.py",
-            "serving/service.py", "launch/serve_bfs.py"} <= names
+            "serving/service.py", "launch/serve_bfs.py",
+            "core/exchange.py", "core/dist_bfs.py", "core/dist_msbfs.py",
+            "distributed/__init__.py", "distributed/compression.py",
+            "distributed/ranks.py", "benchmarks/dist_msbfs_teps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -154,6 +157,8 @@ def test_entry_points_raise_without_gpu(no_gpu):
         launch_bfs.main(["--scale", "6", "--roots", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve_bfs.main(["--scale", "6", "--queries", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_msbfs_teps.main(["--smoke"])
 
 
 def test_training_entry_points_raise_without_gpu(no_gpu):

@@ -150,9 +150,9 @@ def test_admission_controller_matches_reference():
 
 
 def test_distributed_pools_raise(case):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    with pytest.raises(NotImplementedError, match=r"queue A item 9 \(c\)"):
         AnalyticsService(case.wg, ndev=2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    with pytest.raises(NotImplementedError, match=r"queue A item 9 \(c\)"):
         serve_bfs.main(["--scale", "6", "--ndev", "2", "--device", "cpu"])
 
 
