@@ -133,6 +133,30 @@ phase prints one JSON line:
            ms, host syncs: 1 a step) and the step's two collectives alone
            (the all-gather of the rank's [n_loc, W] new rows, the counter
            all-reduce with its read-back);
+  dist2d_kernel   msbfs_probe and both forms of segment_or on every block
+           of a 2x2 grid (partition_graph_2d) at the same sweep layer,
+           against the column block's frontier slice x_j assembled from
+           the global frontier, bit-equal and timed beside the whole
+           graph; bit-equal on every block of the 1x4 and 4x1 grids too;
+  dist_sssp_kernel  semiring_relax and relax_fallback on the light and
+           the heavy input of an SSSP sweep step with both phases live, on
+           every block of a 4-way 1-D and a 2x2 weighted partition (the
+           replicated values; the column block's slice), bit-equal and
+           timed beside the whole graph;
+  dist2d, dist_sssp  one NCCL rank (run_ranks), the weighted graph by
+           file: dist2d_msbfs on a 1x1 grid at --roots and 4x as many roots
+           in 64 lanes, dense and compressed, with the launches (msbfs_probe,
+           segment_or), layers and exchange bytes of each run and every
+           result field's digest against the host engine's, xreduction,
+           the host engine and both formats timed in rotation, host syncs
+           and ms of a step per format (1 and 3 syncs), a khop through
+           LaneEngine(grid=(1, 1)); then dist_sssp on a 1-rank mesh and
+           dist2d_sssp on the 1x1 grid at default_delta, --sources in 32
+           lanes (dense and compressed) and twice as many through them,
+           every field bit-equal to sssp_pipelined's, with the launches
+           (semiring_relax, relax_fallback), steps and bytes, the host
+           engine and both sharded engines in rotation, host syncs and ms
+           of a step per engine and format (1 dense; 2 and 3 compressed);
   u64      the port at 64-bit lane words: the same sweeps (run_graph500
            batched=True at --roots and 4x as many roots), a 64-source khop
            and one streamed replay of the serve phase's trace, run here at
@@ -146,7 +170,8 @@ phase prints one JSON line:
            segment_reduce over the unpacked bits) at each W; its sweeps,
            khop and replay must launch both kernels, and its sweep at
            --roots on the sharded engine over a 1-rank NCCL mesh must
-           launch them and give the host sweep's digests. sha256 digests of every sweep's parent,
+           launch them and give the host sweep's digests, as must a compressed
+           sweep on the 2-D engine over a 1x1 grid. sha256 digests of every sweep's parent,
            depth, num_layers, edges_traversed and traces, of the khop
            membership and of every replay answer's result must equal the
            32-bit run's; sweep wall and TEPS, the replay's pool lanes,
@@ -155,7 +180,10 @@ phase prints one JSON line:
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed;
            msbfs_probe's and segment_or's u64 record from the child; the
-           dist record of bottom_up_probe, msbfs_probe and segment_or).
+           dist record of bottom_up_probe, msbfs_probe and segment_or; the
+           dist2d record of msbfs_probe and segment_or and the dist_sssp
+           record of semiring_relax and relax_fallback: launches, block
+           and whole-graph ms).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
 repository's src/, or a u64 child that fails or outlives its time limit
@@ -214,11 +242,21 @@ from repro_torch.core.bottomup import (_fallback_scan,  # noqa: E402
 from repro_torch.configs.base import (effective_cfg, get_arch,  # noqa: E402
                                       make_step, param_builders)
 from repro_torch.core.csr import CSRGraph, ell_pad, to_numpy_adj  # noqa: E402
+from repro_torch.core.dist2d import (  # noqa: E402
+    dist2d_msbfs_engine_drain, dist2d_msbfs_engine_enqueue,
+    dist2d_msbfs_engine_idle, dist2d_msbfs_engine_init,
+    dist2d_msbfs_engine_result, dist2d_msbfs_engine_step, mesh2d,
+    partition_graph_2d)
 from repro_torch.core.dist_bfs import dist_bfs, partition_graph  # noqa: E402
 from repro_torch.core.dist_msbfs import (  # noqa: E402
     dist_msbfs, dist_msbfs_engine_drain, dist_msbfs_engine_enqueue,
     dist_msbfs_engine_idle, dist_msbfs_engine_init, dist_msbfs_engine_result,
     dist_msbfs_engine_step, host_mesh)
+from repro_torch.core.dist_sssp import (  # noqa: E402
+    default_delta_dist, dist2d_sssp_engine_init,
+    dist2d_sssp_engine_result, dist2d_sssp_engine_step,
+    dist_sssp_engine_init, dist_sssp_engine_result, dist_sssp_engine_step,
+    partition_weighted_graph, partition_weighted_graph_2d)
 from repro_torch.core.exchange import all_gather, psum  # noqa: E402
 from repro_torch.core.hybrid import (ALPHA_DEFAULT, BETA_DEFAULT,  # noqa: E402
                                      MAX_TRACE, bfs, switch_direction)
@@ -371,6 +409,13 @@ U64_CHILD_TIMEOUT = 900
 DIST_BLOCKS = 4
 DIST_TURNS = 3
 DIST_KERNELS = ("bottom_up_probe", "msbfs_probe", "segment_or")
+# the dist2d and dist_sssp phases: the grid and the 1-D partition their
+# kernels run on block by block (timed), the non-square grids the lane
+# kernels are also held on (bit-equal, untimed), and the steps a rank takes
+# step by step for its host syncs
+GRID = (2, 2)
+GRID_CHECKS = ((1, 4), (4, 1))
+SYNC_STEPS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -2559,16 +2604,22 @@ def u64_child(args, dev) -> int:
         torch.cuda.empty_cache()
         dist = run_ranks(dist_sweep_rank, 1, path, args.roots)
     check(dist["word_bits"] == 64, "the sharded rank ran at other words")
-    check(dist["digests"] == digests[f"sweep_{args.roots}"],
-          "the sharded sweep at 64-bit words differs from the host sweep")
-    for name in BATCHED_KERNELS:
-        check(dist["launches"][name] > 0,
-              f"{name} was not launched by the sharded sweep at 64 bits")
+    for engine in ("dist", "dist2d"):
+        check(dist[engine]["digests"] == digests[f"sweep_{args.roots}"],
+              f"the {engine} sweep at 64-bit words differs from the host "
+              f"sweep")
+        for name in BATCHED_KERNELS:
+            check(dist[engine]["launches"][name] > 0,
+                  f"{name} was not launched by the {engine} sweep at 64 "
+                  f"bits")
     numbers["dist_sweep"] = dict(roots=args.roots, lanes=LANES,
                                  seconds=time.perf_counter() - t0,
-                                 digests_equal=sorted(dist["digests"]))
+                                 engines=["dist", "dist2d (1x1, compressed)"],
+                                 digests_equal=sorted(dist["dist"]["digests"]))
     emit("u64_ok", word_bits=LANE_WORD_BITS, launches=launches,
-         dist_launches=dist["launches"], numbers=numbers, digests=digests,
+         dist_launches=dist["dist"]["launches"],
+         dist2d_launches=dist["dist2d"]["launches"], numbers=numbers,
+         digests=digests,
          kernels={name: dict(cases=r["cases"], max_abs_err=r["max_abs_err"])
                   for name, r in kernels.items()},
          kernel_widths={name: r["widths"] for name, r in kernels.items()})
@@ -2621,7 +2672,8 @@ def run_u64(wg, args) -> dict:
 def sweep_layer_state(g, roots):
     """The host engine's state at the layer of a 64-lane sweep with the
     most bottom-up lanes: (layer, frontier [n, W], visited [n, W], bu_sel,
-    td_sel) on the card, the selectors as W words."""
+    td_sel) on the card, the selectors as W words (td_sel all lanes when
+    that layer has no top-down lane, so the top-down form has work)."""
     s = msbfs_engine_enqueue(msbfs_engine_init(g, len(roots), LANES), roots)
     best = None
     while not msbfs_engine_idle(s):
@@ -2635,16 +2687,20 @@ def sweep_layer_state(g, roots):
                     torch.from_numpy(pack_lanes_np(topdown & live)).to(
                         g.device))
         s = msbfs_engine_step(g, s)
-    return best[1:]
+    layer, fro, vis, bu_sel, td_sel = best[1:]
+    if not bool((td_sel != 0).any()):
+        td_sel = torch.full_like(td_sel, -1)
+    return layer, fro, vis, bu_sel, td_sel
 
 
-def dist_kernels(g, probe_out, reps, flush):
+def dist_kernels(g, probe_out, lane_state, reps, flush):
     """The dist phase's kernels on the card, no process group needed: B1
     on every bottom-up layer of the probe root's BFS, and B3 and both forms
-    of X1 on the 64-lane sweep layer with the most bottom-up lanes, each on
-    every row block of partition_graph(g, 4) against the global frontier
-    (as a rank of a 4-rank engine calls it), bit-equal to its plain
-    version, timed beside the same kernel on the whole graph."""
+    of X1 on the 64-lane sweep layer with the most bottom-up lanes
+    (``lane_state``, ``sweep_layer_state``'s), each on every row block of
+    partition_graph(g, 4) against the global frontier (as a rank of a
+    4-rank engine calls it), bit-equal to its plain version, timed beside
+    the same kernel on the whole graph."""
     dev = g.device
     dg = partition_graph(g, DIST_BLOCKS)
     blocks = [dg.local(d, dev) for d in range(DIST_BLOCKS)]
@@ -2680,10 +2736,7 @@ def dist_kernels(g, probe_out, reps, flush):
         b1.append(row)
     rec["bottom_up_probe"]["layers"] = b1
 
-    roots = sample_roots(g, LANES, seed=SEED + 1)
-    layer, fro, vis, bu_sel, td_sel = sweep_layer_state(g, roots)
-    if not bool((td_sel != 0).any()):   # the top-down form on every lane
-        td_sel = torch.full_like(td_sel, -1)
+    layer, fro, vis, bu_sel, td_sel = lane_state
     chk = LaneKernelCheck(g)
     ka, _, fa = chk.bottomup("dist whole graph", fro, ~vis & bu_sel)
     ta = chk.topdown("dist whole graph", fro, vis, td_sel)
@@ -2733,20 +2786,29 @@ def sweep_digests(out) -> dict:
 
 def dist_sweep_rank(graph_path, num) -> dict:
     """One NCCL rank of the u64 child: one sweep of ``num`` roots in 64
-    lanes on the sharded engine over a 1-rank mesh, with the launches of
+    lanes on the sharded engine over a 1-rank mesh, then on the 2-D engine
+    over a 1x1 grid with compressed exchanges, each with the launches of
     that sweep alone and its digests."""
+    from repro_torch.core.dist2d import dist2d_msbfs
     dev = rank_device()
     common.load_library()
     g = load_graph(graph_path, dev)
-    mesh = host_mesh(1)
-    dg = partition_graph(g, 1)
     roots = sample_roots(g, num, seed=SEED + 1)
-    torch.cuda.synchronize()
-    common.reset_launches()
-    out = dist_msbfs(dg, roots, mesh, "hybrid", lanes=LANES)
-    torch.cuda.synchronize()
-    return dict(launches=dict(common.LAUNCHES), digests=sweep_digests(out),
-                word_bits=LANE_WORD_BITS)
+    out = dict(word_bits=LANE_WORD_BITS)
+    for name, run in (
+            ("dist", lambda: dist_msbfs(partition_graph(g, 1), roots,
+                                        host_mesh(1), "hybrid",
+                                        lanes=LANES)),
+            ("dist2d", lambda: dist2d_msbfs(partition_graph_2d(g, 1, 1),
+                                            roots, mesh2d(1, 1), "hybrid",
+                                            lanes=LANES, compress=True))):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = dict(launches=dict(common.LAUNCHES),
+                         digests=sweep_digests(res))
+    return out
 
 
 def dist_rank(graph_path, scale, num, reps) -> dict:
@@ -2885,12 +2947,13 @@ def dist_rank(graph_path, scale, num, reps) -> dict:
     return out
 
 
-def run_dist(g, args, probe_out) -> dict:
+def run_dist(g, args, probe_out, lane_state) -> dict:
     """The dist phase: the kernels on the blocks of a 4-way partition here,
     then the 1-rank NCCL path in a rank of run_ranks, the graph handed over
     by file. Returns the record the kernels line takes."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=g.device)
-    rec = dist_kernels(g, probe_out, max(args.reps // 4, 3), flush)
+    rec = dist_kernels(g, probe_out, lane_state, max(args.reps // 4, 3),
+                       flush)
     del flush
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
@@ -2924,6 +2987,389 @@ def run_dist(g, args, probe_out) -> dict:
         rec[name]["launches"] = {
             f"sweep_{c}": out[f"sweep_{c}"]["launches"][name]
             for c in (args.roots, 4 * args.roots)}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# dist2d and dist_sssp: the 2-D grid engine and the distributed SSSP engines
+# ---------------------------------------------------------------------------
+
+
+def rows_of(t, n, fill=0):
+    """``t`` [rows, ...] padded with ``fill`` to ``n`` rows."""
+    if t.shape[0] == n:
+        return t
+    out = t.new_full((n,) + tuple(t.shape[1:]), fill)
+    out[:t.shape[0]] = t
+    return out
+
+
+def column_slice(t, dg, j):
+    """Column block ``j``'s rows of a global [n, ...] array: its chunk of
+    every row block, in grid-row order (a 2-D step's x_j)."""
+    c = dg.chunk
+    return torch.cat([t[(i * dg.pc + j) * c:(i * dg.pc + j + 1) * c]
+                      for i in range(dg.pr)])
+
+
+def grid_lane_kernels(g, lane_state, reps, flush):
+    """B3 and both forms of X1 on every block (i, j) of partition_graph_2d
+    at GRID, on the 64-lane sweep layer with the most bottom-up lanes:
+    the block's rows against the column block's frontier slice x_j,
+    assembled from the global frontier (as rank (i, j) of a 2x2 engine
+    calls them), bit-equal to the plain versions and timed beside the whole
+    graph; then bit-equal (untimed) on every block of the GRID_CHECKS
+    grids, where x_j has fewer (1x4) or more (4x1) rows than the block."""
+    dev = g.device
+    layer, fro, vis, bu_sel, td_sel = lane_state
+    chk = LaneKernelCheck(g)
+    ka, _, fa = chk.bottomup("dist2d whole graph", fro, ~vis & bu_sel)
+    ta = chk.topdown("dist2d whole graph", fro, vis, td_sel)
+    lane = dict(layer=layer, grid=GRID, checked_grids=GRID_CHECKS,
+                bu_lanes=int(unpack_lanes(bu_sel, LANES).sum()),
+                whole_ms=dict(
+                    probe=time_ms(lambda: msbfs_probe_cuda(*ka), reps, flush),
+                    fallback=time_ms(lambda: segment_or_rows_cuda(*fa), reps,
+                                     flush),
+                    topdown=time_ms(lambda: segment_or_rows_cuda(*ta), reps,
+                                    flush)),
+                blocks=[], block_ms=dict(probe=[], fallback=[], topdown=[]))
+    checks = [chk]
+    for pr, pc in (GRID,) + GRID_CHECKS:
+        dg = partition_graph_2d(g, pr, pc)
+        f, v = rows_of(fro, dg.n), rows_of(vis, dg.n)
+        for d in range(pr * pc):
+            i, j = divmod(d, pc)
+            bg = dg.local(d, dev).g
+            x = column_slice(f, dg, j)
+            rows = v[i * dg.n_loc_r:(i + 1) * dg.n_loc_r]
+            bchk = LaneKernelCheck(bg)
+            label = f"dist2d {pr}x{pc} block ({i}, {j})"
+            ka, _, fa = bchk.bottomup(label, x, ~rows & bu_sel)
+            ta = bchk.topdown(label, x, rows, td_sel)
+            checks.append(bchk)
+            if (pr, pc) != GRID:
+                continue
+            lane["blocks"].append(dict(block=(i, j), rows=dg.n_loc_r,
+                                       x_rows=dg.n_x,
+                                       slots=int(bg.row_ptr[-1])))
+            for form, fn, a in (("probe", msbfs_probe_cuda, ka),
+                                ("fallback", segment_or_rows_cuda, fa),
+                                ("topdown", segment_or_rows_cuda, ta)):
+                lane["block_ms"][form].append(time_ms(lambda: fn(*a), reps,
+                                                      flush))
+        del dg, f, v
+    rec = {name: dict(cases=sum(c.rec[name]["cases"] for c in checks),
+                      max_abs_err=max(c.rec[name]["max_abs_err"]
+                                      for c in checks), sweep_layer=lane)
+           for name in BATCHED_KERNELS}
+    emit("dist2d_kernel", sweep_layer=lane,
+         cases={name: r["cases"] for name, r in rec.items()})
+    return rec
+
+
+def both_phase_step(wg, sources, delta):
+    """The host SSSP engine, ``sources`` in SSSP_LANES lanes, stepped to the
+    first step with lanes in both phases: (step, {phase: (weights,
+    values)}), the step's phase inputs."""
+    roots = sample_roots(wg, sources, seed=SEED + 1)
+    s = sssp_engine_enqueue(sssp_engine_init(wg, len(roots), SSSP_LANES),
+                            roots)
+    while not sssp_engine_idle(s):
+        s = prepare_step(wg, s, delta)
+        p = plan_step(wg, s, delta)
+        if p.iterating.any() and p.settling.any():
+            return s.sweep_steps, {phase: (w, vals) for phase, w, vals in
+                                   phase_inputs(wg, s, delta, p)}
+        s = sssp_engine_step(wg, s, delta)
+    raise SmokeFailure("no SSSP step has lanes in both phases")
+
+
+def grid_relax_kernels(wg, sources, reps, flush):
+    """B4 and X2 on the light and the heavy input of an SSSP sweep step
+    with both phases live, on every block of partition_weighted_graph(wg,
+    4) (against the replicated values, as a 1-D rank relaxes) and of
+    partition_weighted_graph_2d at GRID (against the column block's slice
+    of the values), bit-equal to their plain versions and timed beside the
+    whole graph."""
+    dev = wg.device
+    delta = default_delta(wg)
+    step, inputs = both_phase_step(wg, sources, delta)
+    out = dict(step=step, delta=delta, sources={
+        phase: int(torch.isfinite(vals).sum())
+        for phase, (_, vals) in inputs.items()}, whole_ms={})
+
+    def relax_ms(c, label, w, vals):
+        ra, fa = c.relax(label, w, vals)
+        return dict(probe=time_ms(lambda: semiring_relax_cuda(*ra), reps,
+                                  flush),
+                    fold=time_ms(lambda: relax_fallback_cuda(*fa), reps,
+                                 flush))
+
+    chk = RelaxKernelCheck(wg)
+    for phase, (w, vals) in inputs.items():
+        out["whole_ms"][phase] = relax_ms(chk, f"dist_sssp whole {phase}", w,
+                                          vals)
+    checks = [chk]
+    for kind in ("1d", "2d"):
+        if kind == "1d":
+            dwg, blocks = partition_weighted_graph(wg, DIST_BLOCKS), None
+            nblocks = DIST_BLOCKS
+        else:
+            dwg = partition_weighted_graph_2d(wg, *GRID)
+            blocks, nblocks = dwg.g2, GRID[0] * GRID[1]
+        rows = out[f"blocks_{kind}"] = {phase: [] for phase in inputs}
+        for d in range(nblocks):
+            bwg = dwg.local(d, dev)
+            bchk = RelaxKernelCheck(bwg)
+            masks = phase_masks(bwg, delta)
+            for phase, (_, vals) in inputs.items():
+                if blocks is not None:
+                    vals = column_slice(rows_of(vals, blocks.n, INF), blocks,
+                                        d % blocks.pc)
+                rows[phase].append(relax_ms(
+                    bchk, f"dist_sssp {kind} block {d} {phase}",
+                    masks[phase], vals))
+            checks.append(bchk)
+        del dwg, bwg
+    rec = {name: dict(cases=sum(c.rec[name]["cases"] for c in checks),
+                      max_abs_err=max(c.rec[name]["max_abs_err"]
+                                      for c in checks), sweep_step=out)
+           for name in SSSP_KERNELS}
+    emit("dist_sssp_kernel", sweep_step=out,
+         cases={name: r["cases"] for name, r in rec.items()})
+    return rec
+
+
+def in_rotation(runs: dict, turns: int) -> dict:
+    """Each of ``runs``' functions ``turns`` times, the order rotated every
+    turn: {name: [seconds]} (host wall, ending with a device sync)."""
+    names = list(runs)
+    out = {name: [] for name in names}
+    for i in range(turns):
+        k = i % len(names)
+        for name in names[k:] + names[:k]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    return out
+
+
+def step_rows(state, step, idle, steps: int, reps: int):
+    """The first ``steps`` steps of an engine from ``state``: each step's
+    host syncs (torch's sync debug mode) and wall ms (median of ``reps``;
+    a step run again on the state it was given gives the same state)."""
+    rows = []
+    while not idle(state) and len(rows) < steps:
+        rows.append(dict(syncs=syncs_of(lambda: step(state)),
+                         step_ms=wall_ms(lambda: step(state), reps)))
+        state = step(state)
+    return dict(syncs_per_step=sorted({r["syncs"] for r in rows}),
+                step_ms_median=statistics.median(r["step_ms"] for r in rows),
+                steps=len(rows))
+
+
+def grid_rank(graph_path, num, sources, reps) -> dict:
+    """The dist2d and dist_sssp phases' rank: one NCCL rank on cuda:0, the
+    weighted graph by file. dist2d_msbfs on a 1x1 grid at ``num`` and 4x
+    ``num`` roots in 64 lanes, dense and compressed, every result field's
+    digest against the host engine's, with the launches, layers and bytes
+    of each run; the host engine and both formats timed in rotation; each
+    format's steps (host syncs, ms); a khop through LaneEngine(grid=(1,
+    1)). Then dist_sssp on a 1-rank mesh and dist2d_sssp on the 1x1 grid
+    at default_delta, ``sources`` sources in 32 lanes (dense and
+    compressed) and twice as many through them (dense), every field
+    bit-equal to sssp_pipelined's, with launches, steps and bytes; the host
+    engine and both sharded engines timed in rotation; each engine's and
+    format's steps."""
+    dev = rank_device()
+    common.load_library()
+    t0 = time.perf_counter()
+    wg = load_graph(graph_path, dev)
+    g = wg.csr
+    out = dict(load_seconds=time.perf_counter() - t0, device=str(dev),
+               backend=str(torch.distributed.get_backend()))
+    grid = mesh2d(1, 1)
+    dg = partition_graph_2d(g, 1, 1)
+    dg.local(0, dev)                  # the block on the card before timing
+    formats = (("dense", False), ("compressed", True))
+
+    def init2d(rts):
+        return dist2d_msbfs_engine_enqueue(
+            dist2d_msbfs_engine_init(dg, grid, len(rts), LANES), rts)
+
+    def sweep2d(rts, compress):
+        st = dist2d_msbfs_engine_drain(dg, init2d(rts), grid,
+                                       compress=compress)
+        return st, dist2d_msbfs_engine_result(dg, st, grid)
+
+    msbfs = {}
+    for count in (num, 4 * num):
+        rts = sample_roots(g, count, seed=SEED + 1)
+        want = sweep_digests(msbfs_pipelined(g, rts, "hybrid", lanes=LANES))
+        for fmt, compress in formats:
+            torch.cuda.synchronize()
+            common.reset_launches()
+            st, res = sweep2d(rts, compress)
+            torch.cuda.synchronize()
+            launches = dict(common.LAUNCHES)
+            have = sweep_digests(res)
+            check(have == want, f"the 2-D sweep of {count} roots ({fmt}) "
+                                f"differs from the host engine: {have} {want}")
+            msbfs[f"sweep_{count}_{fmt}"] = dict(
+                launches=launches, layers=st.sweep_layers,
+                exch_bytes=st.exch_bytes,
+                bytes_per_layer=st.exch_bytes / st.sweep_layers,
+                digests_equal=sorted(want))
+            del st, res
+        msbfs[f"xreduction_{count}"] = (
+            msbfs[f"sweep_{count}_dense"]["exch_bytes"]
+            / max(msbfs[f"sweep_{count}_compressed"]["exch_bytes"], 1))
+    rts = sample_roots(g, num, seed=SEED + 1)
+    torch.cuda.empty_cache()
+    msbfs["turns"] = in_rotation(dict(
+        host=lambda: msbfs_pipelined(g, rts, "hybrid", lanes=LANES),
+        dense=lambda: sweep2d(rts, False),
+        compressed=lambda: sweep2d(rts, True)), DIST_TURNS)
+    for fmt, compress in formats:
+        msbfs[f"steps_{fmt}"] = step_rows(
+            init2d(rts), lambda st, c=compress: dist2d_msbfs_engine_step(
+                dg, st, grid, compress=c), dist2d_msbfs_engine_idle,
+            SYNC_STEPS, reps)
+    want = khop_neighborhood(LaneEngine(g, lanes=LANES), rts, 2)
+    got = khop_neighborhood(LaneEngine(g, grid=(1, 1), compress=True,
+                                       lanes=LANES), rts, 2)
+    check(np.array_equal(got.member_mask(), want.member_mask()),
+          "khop through LaneEngine(grid=(1, 1)) differs from LaneEngine()")
+    msbfs["lane_engine_khop"] = dict(sources=len(rts), k=2,
+                                     ndev=got.meta.ndev)
+    out["dist2d"] = msbfs
+    torch.cuda.empty_cache()
+
+    delta = default_delta(wg)
+    mesh = host_mesh(1)
+    dwg, dwg2 = partition_weighted_graph(wg, 1), partition_weighted_graph_2d(
+        wg, 1, 1)
+    dwg.local(0, dev), dwg2.local(0, dev)
+    check(default_delta_dist(dwg) == delta == default_delta_dist(dwg2),
+          "default_delta_dist differs from default_delta")
+    engines = dict(
+        dist_sssp=(lambda cap: dist_sssp_engine_init(dwg, mesh, cap,
+                                                     SSSP_LANES),
+                   lambda st, c: dist_sssp_engine_step(dwg, st, mesh, delta,
+                                                       compress=c),
+                   lambda st: dist_sssp_engine_result(dwg, st)),
+        dist2d_sssp=(lambda cap: dist2d_sssp_engine_init(dwg2, grid, cap,
+                                                         SSSP_LANES),
+                     lambda st, c: dist2d_sssp_engine_step(dwg2, st, grid,
+                                                           delta, compress=c),
+                     lambda st: dist2d_sssp_engine_result(dwg2, st)))
+
+    def sweep_sssp(name, srcs, compress):
+        init, step, result = engines[name]
+        st = sssp_engine_enqueue(init(len(srcs)), srcs)
+        while not sssp_engine_idle(st):
+            st = step(st, compress)
+        return st, result(st)
+
+    many = sample_roots(wg, 2 * sources, seed=SEED + 1)
+    sssp = dict(delta=delta)
+    for srcs in (many[:sources], many):
+        want = sssp_pipelined(wg, srcs, lanes=SSSP_LANES)
+        for name in engines:
+            for fmt, compress in formats[:2 if len(srcs) == sources else 1]:
+                torch.cuda.synchronize()
+                common.reset_launches()
+                st, res = sweep_sssp(name, srcs, compress)
+                torch.cuda.synchronize()
+                launches = dict(common.LAUNCHES)
+                for f, a, b in zip(res._fields, res, want):
+                    if a.is_floating_point():
+                        a, b = a.view(torch.int32), b.view(torch.int32)
+                    check(torch.equal(a, b),
+                          f"{name} ({fmt}, {len(srcs)} sources): {f} "
+                          f"differs from sssp_pipelined")
+                sssp[f"{name}_{len(srcs)}_{fmt}"] = dict(
+                    launches=launches, steps=st.sweep_steps,
+                    exch_bytes=st.exch_bytes,
+                    bytes_per_step=st.exch_bytes / st.sweep_steps,
+                    fields_equal=list(res._fields))
+                del st, res
+        del want
+    srcs = many[:sources]
+    sssp["turns"] = in_rotation(dict(
+        host=lambda: sssp_pipelined(wg, srcs, lanes=SSSP_LANES),
+        dist_sssp=lambda: sweep_sssp("dist_sssp", srcs, False),
+        dist2d_sssp=lambda: sweep_sssp("dist2d_sssp", srcs, False)),
+        DIST_TURNS)
+    for name, (init, step, _) in engines.items():
+        for fmt, compress in formats:
+            sssp[f"steps_{name}_{fmt}"] = step_rows(
+                sssp_engine_enqueue(init(len(srcs)), srcs),
+                lambda st, s=step, c=compress: s(st, c), sssp_engine_idle,
+                SYNC_STEPS, reps)
+    out["dist_sssp"] = sssp
+    return out
+
+
+def run_grid(wg, args, lane_state) -> dict:
+    """The dist2d and dist_sssp phases: the kernels on the blocks here, then
+    the 1-rank NCCL paths in one rank of run_ranks, the weighted graph
+    handed over by file. Checks the launches and the host syncs a step;
+    returns the records the kernels line takes."""
+    g = wg.csr
+    reps = max(args.reps // 4, 3)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=g.device)
+    lane = grid_lane_kernels(g, lane_state, reps, flush)
+    relax = grid_relax_kernels(wg, args.sources, reps, flush)
+    del flush
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(wg, path)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out = run_ranks(grid_rank, 1, path, args.roots, args.sources, reps)
+    seconds = time.perf_counter() - t0
+    msbfs, sssp = out.pop("dist2d"), out.pop("dist_sssp")
+    runs = {k: r for k, r in msbfs.items() if k.startswith("sweep_")}
+    for key, r in runs.items():
+        for name in BATCHED_KERNELS:
+            check(r["launches"][name] > 0,
+                  f"{name} was not launched by the 2-D {key}")
+    sweeps = {k: r for k, r in sssp.items() if k.startswith("dist")}
+    for key, r in sweeps.items():
+        for name in SSSP_KERNELS:
+            check(r["launches"][name] > 0, f"{name} was not launched by {key}")
+    # a dense step reads the device back once; a compressed one also reads
+    # each of its exchanges' counts
+    for key, want in (("steps_dense", [1]), ("steps_compressed", [3])):
+        check(msbfs[key]["syncs_per_step"] == want,
+              f"a 2-D {key} makes {msbfs[key]['syncs_per_step']} host syncs")
+    for key, want in (("steps_dist_sssp_dense", [1]),
+                      ("steps_dist_sssp_compressed", [2]),
+                      ("steps_dist2d_sssp_dense", [1]),
+                      ("steps_dist2d_sssp_compressed", [3])):
+        check(sssp[key]["syncs_per_step"] == want,
+              f"{key} makes {sssp[key]['syncs_per_step']} host syncs")
+
+    def medians(turns):
+        return {k: statistics.median(v) for k, v in turns.items()}
+    emit("dist2d", entry="repro_torch.core.dist2d.dist2d_msbfs", grid=[1, 1],
+         ranks=1, rank_seconds=seconds, **out, **msbfs,
+         turns_median=medians(msbfs["turns"]))
+    emit("dist_sssp", entry="repro_torch.core.dist_sssp.{dist_sssp,"
+                            "dist2d_sssp}", ranks=1, grid=[1, 1],
+         sources=args.sources, lanes=SSSP_LANES, **sssp,
+         turns_median=medians(sssp["turns"]))
+    rec = {name: dict(lane[name], launches={
+        k: r["launches"][name] for k, r in runs.items()})
+        for name in BATCHED_KERNELS}
+    rec.update({name: dict(relax[name], launches={
+        k: r["launches"][name] for k, r in sweeps.items()})
+        for name in SSSP_KERNELS})
     return rec
 
 
@@ -3015,7 +3461,10 @@ def main(argv=None) -> int:
     serve_launches = run_serve(wg, args)
     run_hillclimb(g, args)
     run_serve_bench(wg, args)
-    dist = run_dist(g, args, states)
+    lane_state = sweep_layer_state(g, sample_roots(g, LANES, seed=SEED + 1))
+    dist = run_dist(g, args, states, lane_state)
+    grid = run_grid(wg, args, lane_state)
+    del lane_state
     u64 = run_u64(wg, args)
 
     kernels = []
@@ -3052,6 +3501,7 @@ def main(argv=None) -> int:
             # kernel on the same planes
             per["u64"] = dict(launches=u64["launches"][name],
                               dist_launches=u64["dist_launches"][name],
+                              dist2d_launches=u64["dist2d_launches"][name],
                               bit_equal=True, **u64["kernels"][name],
                               widths=u64["kernel_widths"][name])
         if name in DIST_KERNELS:
@@ -3059,6 +3509,12 @@ def main(argv=None) -> int:
             # kernel on each block of a 4-way partition against the global
             # frontier (bit-equal; block and whole-graph ms)
             per["dist"] = dict(bit_equal=True, **dist[name])
+        if name in grid:
+            # the 2-D and the distributed SSSP engines: launches on the
+            # 1-rank paths, and the kernel on each block of the 2x2 grid
+            # (and, for B4 and X2, of the 4-way partition), bit-equal
+            per["dist2d" if name in BATCHED_KERNELS else "dist_sssp"] = dict(
+                bit_equal=True, **grid[name])
         kernels.append(dict(
             name=name, **KERNELS[name], launches=count, **per,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

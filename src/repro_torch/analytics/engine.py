@@ -14,14 +14,15 @@ same graph, for the ``SSSPQuery`` / ``WeightedClosenessQuery`` workloads.
 Boolean sweeps on a weighted engine ignore the weights.
 
 ``ndev > 1`` (on ``host_mesh(ndev)``, gloo for a graph on the CPU) or an
-explicit ``mesh`` (even of one rank) runs the boolean sweeps on the sharded
-engine ``core.dist_msbfs.dist_msbfs`` over a 1-D partition built once at
-construction; results are trimmed to the original vertex count, so callers
-see the same shapes either way. Such an engine is an SPMD program: every
-rank of the process group builds it and runs the same sweeps. Its weighted
-sweeps wait for the distributed SSSP engine (ROADMAP queue A item 9 (c)),
-and the 2-D knobs ``grid`` and ``compress`` for the 2-D engine (item 9
-(b)); both raise ``NotImplementedError``.
+explicit ``mesh`` (even of one rank) runs the sweeps on the sharded engines
+over a 1-D partition built once at construction: ``core.dist_msbfs
+.dist_msbfs`` and, for a weighted graph, ``core.dist_sssp.dist_sssp``.
+``grid=(pr, pc)`` runs them on the 2-D engines over a ``pr x pc`` grid
+(``mesh2d``, ``core.dist2d.dist2d_msbfs``, ``core.dist_sssp.dist2d_sssp``),
+and ``compress=True`` ships the grid's exchanges through the sparse codecs.
+Results are trimmed to the original vertex count, so callers see the same
+shapes either way. Such an engine is an SPMD program: every rank of the
+process group builds it and runs the same sweeps.
 
 ``telemetry`` (a ``repro_torch.obs.Telemetry`` bundle) records every sweep
 as a per-layer ``SweepRecorder`` stream; None keeps every sweep on the
@@ -70,12 +71,6 @@ class LaneEngine:
         # a repro_torch.obs.Telemetry bundle; None (the default) keeps every
         # sweep on the recorder-off drain path
         self.telemetry = telemetry
-        for name, value in (("grid=", grid is not None),
-                            ("compress=True", compress)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} needs the 2-D distributed engine, which is not "
-                    f"ported yet (ROADMAP queue A item 9 (b))")
         self.wg = g if isinstance(g, WeightedCSRGraph) else None
         self.g = g.csr if self.wg is not None else g
         self.lanes = lanes
@@ -86,10 +81,31 @@ class LaneEngine:
         # the SSSP lanes' relax_impl; on the card both relax kernels run
         # whatever it says (traversal/sssp.py::_relax)
         self.probe_impl = probe_impl
-        self.grid = None
-        self.compress = False
+        self.grid = tuple(grid) if grid is not None else None
+        self.compress = compress
         self.mesh = mesh
-        self.dg = None
+        self.dg = self.dg2 = self.dwg = self.dwg2 = None
+        # the process group's backend follows the graph's device
+        device = "cpu" if self.g.device.type == "cpu" else None
+        if self.grid is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "pass grid=(pr, pc) or a mesh, not both: the 2-D engine "
+                    "builds its own ('row', 'col') grid mesh")
+            from repro_torch.core.dist2d import mesh2d, partition_graph_2d
+            pr, pc = self.grid
+            self.ndev = pr * pc
+            self.mesh = mesh2d(pr, pc, device)
+            self.dg2 = partition_graph_2d(self.g, pr, pc)
+            if self.wg is not None:
+                from repro_torch.core.dist_sssp import (
+                    partition_weighted_graph_2d)
+                self.dwg2 = partition_weighted_graph_2d(self.wg, pr, pc)
+            return
+        if compress:
+            raise ValueError(
+                "compress=True is the 2-D exchange's knob and needs "
+                "grid=(pr, pc); the 1-D engine's exchange is always dense")
         if mesh is not None:
             ndev = mesh.mesh.numel()
         # the partition, as the results' metadata records it
@@ -99,9 +115,11 @@ class LaneEngine:
         if self.ndev > 1 or mesh is not None:
             from repro_torch.core.dist_msbfs import host_mesh, partition_graph
             if self.mesh is None:
-                self.mesh = host_mesh(
-                    self.ndev, "cpu" if self.g.device.type == "cpu" else None)
+                self.mesh = host_mesh(self.ndev, device)
             self.dg = partition_graph(self.g, self.ndev)
+            if self.wg is not None:
+                from repro_torch.core.dist_sssp import partition_weighted_graph
+                self.dwg = partition_weighted_graph(self.wg, self.ndev)
 
     @property
     def n(self) -> int:
@@ -135,6 +153,14 @@ class LaneEngine:
         roots = np.asarray(roots, np.int32).reshape(-1)
         if roots.size < 1:
             raise ValueError("need at least one root")
+        if self.dg2 is not None:
+            from repro_torch.core.dist2d import dist2d_msbfs
+            return dist2d_msbfs(self.dg2, roots, self.mesh, self.mode,
+                                self.alpha, self.beta, self.max_pos,
+                                lanes=self.lanes_for(roots.size),
+                                compress=self.compress,
+                                derive_parents=derive_parents,
+                                recorder=self._recorder("dist2d"))
         if self.dg is not None:
             from repro_torch.core.dist_msbfs import dist_msbfs
             return dist_msbfs(self.dg, roots, self.mesh, self.mode,
@@ -163,25 +189,36 @@ class LaneEngine:
     def sssp_sweep(self, roots, delta=None):
         """One pipelined delta-stepping sweep over the engine's weighted
         graph; returns ``traversal.sssp.SSSPResult`` (``dist`` is float32
-        [n, R] on the graph's device, inf unreached). ``delta`` is a
-        scalar width or a per-lane tuple (None picks the graph
-        default)."""
+        [n, R] on the graph's device, inf unreached). It runs on the
+        engine's partition, as ``sweep`` does: the host engine, the 1-D
+        sharded engine on a mesh, the 2-D engine on a grid (``compress``
+        ships its value exchanges through the sparse codec); the results
+        are the same. ``delta`` is a scalar width or a per-lane tuple (None
+        picks the graph default)."""
         if self.wg is None:
             raise TypeError(
                 "weighted sweep on an unweighted engine — build the "
                 "LaneEngine from a WeightedCSRGraph (e.g. "
                 "graph.generator.rmat_weighted_graph) to serve "
                 "sssp/weighted-closeness queries")
-        if self.dg is not None:
-            raise NotImplementedError(
-                "weighted sweeps on a distributed engine need the sharded "
-                "SSSP engine (dist_sssp), which is not ported yet (ROADMAP "
-                "queue A item 9 (c))")
         roots = np.asarray(roots, np.int32).reshape(-1)
         if roots.size < 1:
             raise ValueError("need at least one source")
-        return sssp_pipelined(self.wg, roots, delta=delta,
-                              lanes=self.sssp_lanes_for(roots.size),
+        lanes = self.sssp_lanes_for(roots.size)
+        if self.dwg2 is not None:
+            from repro_torch.core.dist_sssp import dist2d_sssp
+            return dist2d_sssp(self.dwg2, roots, self.mesh, delta=delta,
+                               lanes=lanes, max_pos=self.max_pos,
+                               relax_impl=self.probe_impl,
+                               compress=self.compress,
+                               recorder=self._recorder("dist2d_sssp"))
+        if self.dwg is not None:
+            from repro_torch.core.dist_sssp import dist_sssp
+            return dist_sssp(self.dwg, roots, self.mesh, delta=delta,
+                             lanes=lanes, max_pos=self.max_pos,
+                             relax_impl=self.probe_impl,
+                             recorder=self._recorder("dist_sssp"))
+        return sssp_pipelined(self.wg, roots, delta=delta, lanes=lanes,
                               max_pos=self.max_pos,
                               relax_impl=self.probe_impl,
                               recorder=self._recorder("sssp"))

@@ -91,7 +91,8 @@ def _resolve_delta(eng, delta) -> float | tuple | None:
 def sssp_distances(g_or_engine, sources, delta=None,
                    **engine_kwargs) -> SSSPDistancesResult:
     """Shortest-path distances from each source, one pipelined
-    delta-stepping sweep on the engine's graph.
+    delta-stepping sweep on whatever partition the engine was built with
+    (host, 1-D mesh or 2-D grid; the distances are the same).
     ``delta=None`` picks the engine default
     (``traversal.sssp.default_delta``); ``delta="adaptive"`` the
     weight-histogram width; a per-lane tuple hands each lane its own."""

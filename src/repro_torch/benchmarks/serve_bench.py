@@ -26,7 +26,8 @@ and p50/p99 sojourn layers of both replays (lower is better).
 
 (with ``src`` on ``PYTHONPATH``; ``--device cpu`` for the plain PyTorch
 path; ``--smoke`` is scale 10 with 32 queries). ``--ndev > 1`` needs the
-sharded lane pools and raises (ROADMAP queue A item 9 (c)).
+sharded service pools, not ported yet, and raises (ROADMAP queue A item 9
+(c)).
 """
 from __future__ import annotations
 
@@ -63,8 +64,8 @@ def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
     device); by default it is built on ``device``."""
     if ndev > 1:
         raise NotImplementedError(
-            "ndev > 1 needs the sharded lane pools, whose tropical pool "
-            "runs the distributed SSSP engine (dist_sssp), which is not "
+            "ndev > 1 needs the sharded service pools (_PackedPool and "
+            "_TropicalPool over the distributed engines), which are not "
             "ported yet (ROADMAP queue A item 9 (c))")
     from repro_torch.graph.generator import rmat_weighted_graph
     from repro_torch.serving.trace import synthetic_trace

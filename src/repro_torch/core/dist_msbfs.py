@@ -76,16 +76,25 @@ def host_mesh(ndev: int, device=None):
     rank on its ``cuda:<local rank>``), on the CPU for ``device="cpu"``
     (gloo). Raises without a group, with another world size, or with the
     other device's backend, and says how to launch."""
+    return group_mesh(f"host_mesh({ndev})", (ndev,), ("data",), device)
+
+
+def group_mesh(what: str, shape: tuple, names: tuple, device=None):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the whole
+    initialised process group, on the device type ``device`` names (the
+    GPU for None): ``host_mesh``'s and ``dist2d.mesh2d``'s checks, their
+    errors naming ``what``."""
+    ndev = int(np.prod(shape))
     launch = (f"launch the program on {ndev} ranks with "
               f"repro_torch.distributed.ranks.run_ranks(fn, {ndev}, ...) or "
               f"torchrun --nproc-per-node {ndev}")
     if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(f"host_mesh({ndev}) needs an initialised "
-                           f"torch.distributed process group: {launch}")
+        raise RuntimeError(f"{what} needs an initialised torch.distributed "
+                           f"process group: {launch}")
     world = dist.get_world_size()
     if world != ndev:
-        raise ValueError(f"host_mesh({ndev}) but the process group has "
-                         f"{world} ranks: {launch}")
+        raise ValueError(f"{what} needs {ndev} ranks, and the process group "
+                         f"has {world}: {launch}")
     device_type = "cpu" if (device is not None and torch.device(
         device).type == "cpu") else "cuda"
     want = "gloo" if device_type == "cpu" else "nccl"
@@ -94,7 +103,7 @@ def host_mesh(ndev: int, device=None):
         raise ValueError(f"a {device_type} mesh needs the {want} backend, "
                          f"and the process group runs {backend}")
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (ndev,), mesh_dim_names=("data",))
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def dist_msbfs_engine_init(dg: DistGraph, mesh, capacity: int,

@@ -1,10 +1,11 @@
-"""Frontier-word exchange primitives shared by the distributed engines.
+"""Exchange primitives shared by the distributed engines.
 
-Port of the OR side of ``repro.core.exchange`` on ``torch.distributed``.
-Every distributed traversal moves one kind of state between ranks: packed
-lane words (``core/packed.py``). This module is the one implementation of
-those moves, so every partition shares a wire format, a compression rule
-and a byte count:
+Port of ``repro.core.exchange`` on ``torch.distributed``. The distributed
+traversals move two kinds of state between ranks: packed lane words
+(``core/packed.py``), which fold under OR, and float lane values (the SSSP
+engines' distances and candidates), which fold under MIN. This module is
+the one implementation of those moves, so every partition shares a wire
+format, a compression rule and a byte count:
 
 * ``allreduce_or``: the bitwise-OR all-reduce, the ``psum`` of bitmasks.
   ``torch.distributed`` has no OR reduction that both gloo and NCCL
@@ -18,15 +19,22 @@ and a byte count:
   form and the byte count follows it.
 * ``exchange_expand`` / ``exchange_reduce_or``: the two moves of the
   Buluc-Madduri 2-D decomposition, over ``gather_words``.
+* ``allreduce_min``, ``gather_values``, ``exchange_expand_values`` and
+  ``exchange_reduce_min``: the MIN side, the same moves for float values
+  over the value codec, whose empty entry is ``inf``.
 * ``psum`` / ``pmin`` / ``pmax``: ``all_reduce`` over a group, as the
   reference's ``lax`` collectives.
 
 A ``MeshComm`` names the group a collective runs over and this rank's place
 in it: ``mesh_comm(mesh)`` spans the whole mesh, its axes flattened (the
 1-D engines' block order, ``mesh.mesh.flatten()``), ``mesh_comm(mesh,
-axis)`` one axis. Gathered slices are stacked in that order. The MIN side
-(``allreduce_min``, ``gather_values``, ``exchange_*_values``) comes with the
-distributed SSSP engine (ROADMAP queue A item 9 (c)).
+axis)`` one axis. Gathered slices are stacked in that order. A ``GridComm``
+holds the groups of a ``("row", "col")`` grid mesh that the 2-D engines
+use (``grid_comm``).
+
+A compressed gather reads its group's entry counts on the host, to choose
+the form: one host sync per compressed exchange, where the dense form
+makes none.
 """
 from __future__ import annotations
 
@@ -37,13 +45,17 @@ import torch.distributed as dist
 
 from repro_torch.distributed.compression import (DENSE_THRESHOLD,
                                                  _COUNT_BYTES, _IDX_BYTES,
+                                                 compress_values,
                                                  compress_words,
+                                                 decompress_values,
                                                  decompress_words,
                                                  sparse_budget)
 
 __all__ = [
-    "MeshComm", "allreduce_or", "exchange_expand", "exchange_reduce_or",
-    "gather_words", "mesh_comm", "pmax", "pmin", "psum", "sparse_budget",
+    "GridComm", "MeshComm", "allreduce_min", "allreduce_or",
+    "exchange_expand", "exchange_expand_values", "exchange_reduce_min",
+    "exchange_reduce_or", "gather_values", "gather_words", "grid_comm",
+    "grid_sum", "mesh_comm", "pmax", "pmin", "psum", "sparse_budget",
 ]
 
 # all_gather_into_tensor is named all_gather_single in newer torch
@@ -93,6 +105,44 @@ def mesh_comm(mesh, axis=None) -> MeshComm:
                     index=members.index(dist.get_rank()), order=order)
 
 
+class GridComm(NamedTuple):
+    """The groups of a ``("row", "col")`` grid mesh, for rank ``(i, j)``:
+    ``row`` gathers along "row" (the ranks of grid column ``j``, in grid-row
+    order), ``col`` along "col" (the ranks of grid row ``i``), ``world``
+    spans the grid when it is the whole process group (else None)."""
+    row: MeshComm
+    col: MeshComm
+    world: MeshComm | None
+    i: int                   # grid row of this rank
+    j: int                   # grid column of this rank
+
+    @property
+    def pr(self) -> int:
+        return self.row.size
+
+    @property
+    def pc(self) -> int:
+        return self.col.size
+
+
+def grid_comm(mesh) -> GridComm:
+    """The ``GridComm`` of a ``("row", "col")`` mesh on this rank."""
+    row, col = mesh_comm(mesh, "row"), mesh_comm(mesh, "col")
+    members = sorted(mesh.mesh.flatten().tolist())
+    world = (mesh_comm(mesh) if members == list(range(dist.get_world_size()))
+             else None)
+    return GridComm(row=row, col=col, world=world, i=row.index, j=col.index)
+
+
+def grid_sum(x: torch.Tensor, grid: GridComm) -> torch.Tensor:
+    """Element-wise sum over every rank of the grid: one all-reduce over
+    the process group when the grid spans it, else over "col" and then
+    "row"."""
+    if grid.world is not None:
+        return psum(x, grid.world)
+    return psum(psum(x, grid.col), grid.row)
+
+
 def all_gather(x: torch.Tensor, comm: MeshComm) -> torch.Tensor:
     """Stack every rank's ``x`` (same shape and dtype everywhere) in mesh
     order: ``[comm.size, *x.shape]``."""
@@ -135,11 +185,50 @@ def _or_fold(stacked: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _min_fold(stacked: torch.Tensor) -> torch.Tensor:
+    """MIN-fold a gathered ``[ndev, ...]`` stack along its rank dim."""
+    out = stacked[0]
+    for d in range(1, stacked.shape[0]):
+        out = torch.minimum(out, stacked[d])
+    return out
+
+
+def allreduce_min(vals: torch.Tensor, comm: MeshComm) -> torch.Tensor:
+    """Element-wise MIN all-reduce of float lane values over the group,
+    dense, as an all-gather and a fold like ``allreduce_or``. ``inf`` is
+    the identity; float32 ``min`` is exact in any order (the engines make
+    no NaN), so the fold order cannot change a bit."""
+    return _min_fold(all_gather(vals, comm))
+
+
 def allreduce_or(words: torch.Tensor, comm: MeshComm) -> torch.Tensor:
     """Bitwise-OR all-reduce of packed lane words over the group, dense:
     the 1-D engine's frontier exchange, where each rank ORs its placed row
     block into the replicated ``[n, W]`` frontier."""
     return _or_fold(all_gather(words, comm))
+
+
+def _gather(own: torch.Tensor, axis: MeshComm, compress: bool,
+            threshold: float, codec):
+    """All-gather ``own`` along ``axis``, through ``codec`` = (compress,
+    decompress) when ``compress`` and every slice of the group fits the
+    sparse budget. Returns ``(stacked [ndev, *own.shape], bytes)``."""
+    itemsize = own.element_size()
+    total = own.numel()
+    dense = axis.size * total * itemsize
+    if not compress:
+        return all_gather(own, axis), dense
+    pack, unpack = codec
+    budget = sparse_budget(total, threshold)
+    idx, payload, count = pack(own, budget)
+    counts = all_gather(count.reshape(1), axis).view(-1).tolist()
+    if max(counts) > budget:
+        return all_gather(own, axis), dense
+    g_idx, g_pay = all_gather(idx, axis), all_gather(payload, axis)
+    stacked = torch.stack([unpack(g_idx[d], g_pay[d], total)
+                           .reshape(own.shape) for d in range(axis.size)])
+    return stacked, sum(_COUNT_BYTES + c * (_IDX_BYTES + itemsize)
+                        for c in counts)
 
 
 def gather_words(own: torch.Tensor, axis: MeshComm, compress: bool = False,
@@ -156,20 +245,19 @@ def gather_words(own: torch.Tensor, axis: MeshComm, compress: bool = False,
     small collective and a host read), and if every slice fits the budget
     the group gathers the (index, word) buffers and unpacks them; otherwise
     it gathers the dense slices."""
-    itemsize = own.element_size()
-    total = own.numel()
-    if not compress:
-        return all_gather(own, axis), axis.size * total * itemsize
-    budget = sparse_budget(total, threshold)
-    idx, payload, count = compress_words(own, budget)
-    counts = all_gather(count.reshape(1), axis).view(-1).tolist()
-    if max(counts) > budget:
-        return all_gather(own, axis), axis.size * total * itemsize
-    g_idx, g_pay = all_gather(idx, axis), all_gather(payload, axis)
-    stacked = torch.stack([decompress_words(g_idx[d], g_pay[d], total)
-                           .reshape(own.shape) for d in range(axis.size)])
-    return stacked, sum(_COUNT_BYTES + c * (_IDX_BYTES + itemsize)
-                        for c in counts)
+    return _gather(own, axis, compress, threshold,
+                   (compress_words, decompress_words))
+
+
+def gather_values(own: torch.Tensor, axis: MeshComm, compress: bool = False,
+                  threshold: float = DENSE_THRESHOLD):
+    """All-gather a per-rank float value slice along ``axis``: the value
+    twin of ``gather_words``, whose density switch counts the finite
+    entries (a relaxation candidate is ``inf`` wherever no relaxation fired
+    this step, so the compressed bytes follow the active frontier).
+    Returns ``(stacked values [ndev, *own.shape], bytes)``."""
+    return _gather(own, axis, compress, threshold,
+                   (compress_values, decompress_values))
 
 
 def exchange_expand(own: torch.Tensor, axis: MeshComm,
@@ -190,3 +278,23 @@ def exchange_reduce_or(partial: torch.Tensor, axis: MeshComm,
     Returns ``(words like partial, bytes)``."""
     stacked, nbytes = gather_words(partial, axis, compress, threshold)
     return _or_fold(stacked), nbytes
+
+
+def exchange_expand_values(own: torch.Tensor, axis: MeshComm,
+                           compress: bool = False,
+                           threshold: float = DENSE_THRESHOLD):
+    """Expand-side value exchange of the 2-D decomposition: gather the
+    value chunks of the ranks along ``axis`` and concatenate them in axis
+    order. Returns ``(values [ndev * rows, L], bytes)``."""
+    stacked, nbytes = gather_values(own, axis, compress, threshold)
+    return stacked.reshape((-1,) + tuple(own.shape[1:])), nbytes
+
+
+def exchange_reduce_min(partial: torch.Tensor, axis: MeshComm,
+                        compress: bool = False,
+                        threshold: float = DENSE_THRESHOLD):
+    """Reduce-side value exchange: MIN-fold the partial relaxation
+    candidates of the ranks along ``axis`` (the same on each). Returns
+    ``(values like partial, bytes)``."""
+    stacked, nbytes = gather_values(partial, axis, compress, threshold)
+    return _min_fold(stacked), nbytes

@@ -23,13 +23,17 @@ switch, the traces, the finish test and the traversed-edge count.
 Parents are derived once at the end from the depths (min-id neighbour one
 level up), which equals the serial ``bfs`` parents exactly.
 
-The pipelined engine also runs sharded (``core/dist_msbfs.py``): a state
-whose ``comm`` names a mesh group holds the rank's row block of the
-row-indexed arrays (from global row ``base``) and the replicated frontier.
-The step then runs the packed step on the rank's block of the graph,
-gathers the ranks' new rows into the next frontier and sums the counters
-over the ranks before the one read-back, so the host control is the same
-on every rank.
+The pipelined engine also runs sharded. On a 1-D partition
+(``core/dist_msbfs.py``) a state whose ``comm`` names a mesh group holds the
+rank's row block of the row-indexed arrays (from global row ``base``) and
+the replicated frontier; the step runs the packed step on the rank's block
+of the graph, gathers the ranks' new rows into the next frontier and sums
+the counters over the ranks before the one read-back. On a 2-D grid
+(``core/dist2d.py``, ``comm`` a ``GridComm``) the frontier is a row block
+too: the step gathers the column block's frontier slice along "row", runs
+the packed step on the rank's adjacency block against it, and OR-folds the
+partial new rows along "col". Either way the host control is the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr import CSRGraph
-from repro_torch.core.exchange import all_gather, psum
+from repro_torch.core.exchange import (GridComm, all_gather, exchange_expand,
+                                       exchange_reduce_or, grid_sum, psum)
 from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT, MAX_TRACE
 from repro_torch.core.packed import (LANE_WORD_BITS, MODES, depth_slice_words,
                                      dispatch_packed_step, host_word_dtype,
@@ -243,8 +248,9 @@ def _derive_parents(g: CSRGraph, depth: torch.Tensor, roots,
 # port writes only the lanes that do, so that column is never written, and
 # columns [0, capacity) equal the reference's.
 # A sharded state (comm set) holds rows [base, base + n_loc) of visited,
-# depth and out_depth and the whole frontier; the counters, the degrees and
-# all host control are global and the same on every rank.
+# depth and out_depth, and the whole frontier on a 1-D partition or the same
+# rows of it on a 2-D grid; the counters, the degrees and all host control
+# are global and the same on every rank.
 # ---------------------------------------------------------------------------
 
 
@@ -270,7 +276,9 @@ class PipelineState(NamedTuple):
     deg: np.ndarray | None = None       # host int32[n] degrees; None = not read yet
     deg_total: int = 0                  # sum of deg (an idle lane's e_u)
     base: int = 0                       # global row of visited/depth row 0
-    comm: object = None                 # mesh group (MeshComm); None = one device
+    comm: object = None                 # MeshComm (1-D) or GridComm (2-D); None = one device
+    exch_bytes: int = 0                 # wire bytes of the 2-D exchanges, all ranks
+    exch_log: np.ndarray | None = None  # int64[MAX_TRACE] bytes per step; None = not metered
 
     @property
     def num_lanes(self) -> int:
@@ -290,9 +298,12 @@ def msbfs_engine_init(g: CSRGraph, capacity: int,
 
 
 def _fresh_state(deg: np.ndarray, n_loc: int, dev, capacity: int,
-                 lanes: int, base: int = 0, comm=None) -> PipelineState:
+                 lanes: int, base: int = 0, comm=None,
+                 frontier_rows: int | None = None) -> PipelineState:
     """An idle engine over the host degrees ``deg`` [n] whose row arrays
-    hold ``n_loc`` rows from global row ``base`` (all n on one device)."""
+    hold ``n_loc`` rows from global row ``base`` (all n on one device), and
+    whose frontier holds ``frontier_rows`` rows (default n; n_loc on a 2-D
+    grid, where the frontier is a row block too)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     if lanes < 1:
@@ -302,7 +313,8 @@ def _fresh_state(deg: np.ndarray, n_loc: int, dev, capacity: int,
     counters = np.zeros((3, lanes), np.int32)
     counters[2] = deg_total
     return PipelineState(
-        frontier=torch.zeros((n, w), dtype=word_dtype(), device=dev),
+        frontier=torch.zeros((n if frontier_rows is None else frontier_rows,
+                              w), dtype=word_dtype(), device=dev),
         visited=torch.zeros((n_loc, w), dtype=word_dtype(), device=dev),
         depth=torch.full((n_loc, lanes), -1, dtype=torch.int32, device=dev),
         lane_layer=np.zeros(lanes, np.int32),
@@ -378,12 +390,14 @@ def _idle_counters(counters: np.ndarray, deg_total: int,
 def _global_rows(s: PipelineState, rows: torch.Tensor) -> torch.Tensor:
     """A row-indexed device array of the state in global row order: the
     array itself on one device, the ranks' blocks gathered in mesh order on
-    a mesh (a collective)."""
+    a mesh, the row blocks gathered along "row" on a grid (a
+    collective)."""
     if s.comm is None:
         return rows
+    comm = s.comm.row if isinstance(s.comm, GridComm) else s.comm
     if rows.shape[1] == 0:
-        return rows.new_zeros((s.comm.size * rows.shape[0], 0))
-    return all_gather(rows.contiguous(), s.comm).reshape(-1, rows.shape[1])
+        return rows.new_zeros((comm.size * rows.shape[0], 0))
+    return all_gather(rows.contiguous(), comm).reshape(-1, rows.shape[1])
 
 
 def msbfs_engine_enqueue(state: PipelineState, roots) -> PipelineState:
@@ -411,9 +425,10 @@ def _refill(g: CSRGraph, s: PipelineState,
     """Claim pending queue slots for idle lanes and seat their roots.
 
     Idle lanes have zero bits and -1 depths, so seating sets one bit and
-    one depth per claimed lane: the frontier bit on every rank, the depth
-    on the root's owner. Nothing is done when no lane is idle or no root is
-    pending."""
+    one depth per claimed lane: the frontier bit on every rank that holds
+    the root's frontier row, the depth on the root's owner. A root is
+    seated when it is a vertex of the (padded) graph. Nothing is done when
+    no lane is idle or no root is pending."""
     cap = s.capacity
     if not ((s.lane_qidx >= cap).any() and s.next_root < s.queued):
         return s
@@ -421,12 +436,15 @@ def _refill(g: CSRGraph, s: PipelineState,
                                      s.queue)
     lanes = np.flatnonzero(claim)
     roots = root[lanes]
-    seated = _seat_words(s.frontier, roots, lanes)
+    seated = (roots >= 0) & (roots < s.deg.shape[0])
+    # the frontier holds every row, or on a 2-D grid the rank's rows
+    f0 = 0 if s.frontier.shape[0] == s.deg.shape[0] else s.base
+    _seat_words(s.frontier, roots - f0, lanes)
     rows = slice(s.base, s.base + s.depth.shape[0])
     own = seated & (roots >= rows.start) & (roots < rows.stop)
     _seat_depth(s.depth, roots[own] - rows.start, lanes[own])
     # frontier is inside visited, so this adds exactly the fresh bits
-    visited = s.visited | s.frontier[rows]
+    visited = s.visited | s.frontier[rows.start - f0:rows.stop - f0]
     counters = _idle_counters(s.counters, s.deg_total, lanes)
     d = s.deg[roots[seated]]
     counters[0, lanes[seated]] = d
@@ -452,14 +470,16 @@ def _plan(s: PipelineState, mode: str, n: int, alpha: float, beta: float):
 
 
 def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
-                   beta: float, max_pos: int,
-                   n: int | None = None) -> PipelineState:
+                   beta: float, max_pos: int, n: int | None = None,
+                   compress: bool = False) -> PipelineState:
     """One engine step: refill idle lanes, advance one layer, flush the
     lanes that finished. Reads the device back once, for the counters of
     the new state. ``g`` is the graph, or the rank's block of it for a
-    sharded state, whose new rows are gathered into the next frontier and
-    whose counters are summed over the ranks. ``n`` is the vertex count of
-    the switch rule (default ``g.n``)."""
+    sharded state, whose new rows are gathered into the next frontier (on
+    a 2-D grid: whose frontier slice is gathered first, and whose partial
+    rows are OR-folded) and whose counters are summed over the ranks. ``n``
+    is the vertex count of the switch rule (default ``g.n``); ``compress``
+    ships the 2-D exchanges through the sparse word codec."""
     n = g.n if n is None else n
     dev = g.device
     lanes = s.num_lanes
@@ -481,21 +501,54 @@ def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
                                v_f, e_f, e_u)):
         t[row, col] = vals[active]
 
-    new = dispatch_packed_step(g, s.frontier, s.visited,
+    grid = s.comm if isinstance(s.comm, GridComm) else None
+    frontier = s.frontier
+    if grid is not None:
+        # expand: each rank of the grid column gives its own chunk of the
+        # row block, which make up this column block's frontier slice x_j
+        chunk = s.frontier.shape[0] // grid.pc
+        frontier, b_expand = exchange_expand(
+            s.frontier[grid.j * chunk:(grid.j + 1) * chunk], grid.row,
+            compress)
+    new = dispatch_packed_step(g, frontier, s.visited,
                                pack_lanes_np(topdown & live),
                                pack_lanes_np(~topdown & live), mode, max_pos)
+    if grid is not None:
+        # fold: the partial rows of the grid row's blocks make the row
+        # block's new frontier
+        new, b_fold = exchange_reduce_or(new, grid.col, compress)
     new_b = unpack_lanes(new, lanes)
     visited2 = s.visited | new
     lane_layer2 = (s.lane_layer + active).astype(np.int32)
     depth2 = torch.where(new_b, to_device(lane_layer2, dev)[None, :], s.depth)
     counters = torch.stack(lane_counters(
         g, new_b, unpack_lanes(visited2, lanes)))
-    # on a mesh the ranks own disjoint rows: their new rows in mesh order
-    # are the next frontier, and the counters are the ranks' sums
-    frontier = _global_rows(s, new)
-    if s.comm is not None:
-        counters = psum(counters, s.comm)
-    counters = counters.cpu().numpy()
+    nbytes = 0
+    if grid is not None:
+        frontier = new
+        # block degrees are partial, so e_f and e_u sum over the whole
+        # grid; a row block's vertices count once (grid column 0), as does
+        # each expand group's byte total (grid row 0) and each fold
+        # group's (grid column 0): one all-reduce gives the reference's
+        # psums over its axes
+        mask = to_device(np.array([1, grid.j == 0, 1], np.int64), dev)
+        sent = to_device(np.array([b_expand * (grid.i == 0),
+                                   b_fold * (grid.j == 0)], np.int64), dev)
+        total = grid_sum(torch.cat([(counters.long() * mask[:, None])
+                                    .reshape(-1), sent]), grid).cpu().numpy()
+        counters, nbytes = (total[:-2].reshape(3, lanes).astype(np.int32),
+                            int(total[-2:].sum()))
+    else:
+        # on a mesh the ranks own disjoint rows: their new rows in mesh
+        # order are the next frontier, and the counters are the ranks' sums
+        frontier = _global_rows(s, new)
+        if s.comm is not None:
+            counters = psum(counters, s.comm)
+        counters = counters.cpu().numpy()
+    exch_log = s.exch_log
+    if exch_log is not None:
+        exch_log = exch_log.copy()
+        exch_log[min(s.sweep_layers, MAX_TRACE - 1)] += nbytes
 
     # finish = frontier drained or the per-lane layer cap (the serial loop
     # bound, and what makes the drain terminate)
@@ -524,7 +577,8 @@ def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
         topdown=topdown, sweep_layers=s.sweep_layers + 1,
         out_edges=out_edges, out_layers=out_layers, trace_dir=trace[0],
         trace_vf=trace[1], trace_ef=trace[2], trace_eu=trace[3],
-        counters=counters)
+        counters=counters, exch_bytes=s.exch_bytes + nbytes,
+        exch_log=exch_log)
 
 
 def msbfs_engine_step(g: CSRGraph, state: PipelineState,

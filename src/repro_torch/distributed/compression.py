@@ -1,8 +1,9 @@
-"""Collective-payload compression: the packed frontier-word codec.
+"""Collective-payload compression: the frontier-word and lane-value codecs.
 
-Port of the frontier-word half of ``repro.distributed.compression``. The
-2-D exchange ships per-device slices of packed lane words every layer, and
-sparse frontiers are mostly zero words. ``compress_words`` packs the nonzero
+Port of the frontier-word and value halves of
+``repro.distributed.compression``. The 2-D exchange ships per-device slices
+of packed lane words every layer, and sparse frontiers are mostly zero
+words. ``compress_words`` packs the nonzero
 words of a slice into (flat index, payload) pairs inside a fixed
 ``budget``-slot buffer, and ``decompress_words`` scatters them back. Pad
 slots carry ``(0, 0)``, so decompression is exact whenever ``count <=
@@ -15,16 +16,19 @@ word with the top bit set would lose against a pad slot's 0; the port
 scatters only the nonzero payloads, which gives the same bits.
 
 The value codec (``values_finite``, ``compress_values``,
-``decompress_values``) comes with the distributed SSSP engine (ROADMAP queue
-A item 9 (c)), and the gradient codec with the distributed trainer (item 9
-(d)).
+``decompress_values``) is the float twin for the distributed SSSP engines'
+MIN exchanges: ``inf`` is the MIN identity, so a slice ships its finite
+entries only, and decompression is a min-scatter onto an ``inf``
+background. The gradient codec waits for the distributed trainer (ROADMAP
+queue A item 9 (d)).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["DENSE_THRESHOLD", "compress_words", "decompress_words",
-           "sparse_budget", "words_nnz", "wire_bytes"]
+__all__ = ["DENSE_THRESHOLD", "compress_values", "compress_words",
+           "decompress_values", "decompress_words", "sparse_budget",
+           "values_finite", "words_nnz", "wire_bytes"]
 
 # the sparse form wins while at most this fraction of words is nonzero: a
 # sparse slot costs an int32 index and the word, so at 4-byte words the
@@ -62,21 +66,7 @@ def compress_words(words: torch.Tensor, budget: int):
     the nonzero words (a prefix sum), and words past the budget go to a
     discarded slot."""
     flat = words.reshape(-1)
-    total = flat.shape[0]
-    if budget < 1 or budget > total:
-        raise ValueError(f"budget must be in [1, {total}], got {budget}")
-    nz = flat != 0
-    rank = torch.cumsum(nz, 0, dtype=torch.int64) - 1
-    slot = torch.where(nz & (rank < budget), rank, budget)
-    dev = flat.device
-    idx = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
-    idx.scatter_(0, slot, torch.arange(total, dtype=torch.int32, device=dev))
-    payload = torch.zeros(budget + 1, dtype=flat.dtype, device=dev)
-    payload.scatter_(0, slot, flat)
-    count = nz.sum(dtype=torch.int32)
-    valid = torch.arange(budget, device=dev) < count
-    return (torch.where(valid, idx[:budget], 0),
-            torch.where(valid, payload[:budget], 0), count)
+    return _pack_slots(flat != 0, flat, budget, 0)
 
 
 def decompress_words(idx: torch.Tensor, payload: torch.Tensor,
@@ -103,3 +93,59 @@ def wire_bytes(count, num_words: int, budget: int, itemsize: int):
     if isinstance(count, torch.Tensor):
         return torch.where(count <= budget, sparse, dense).to(torch.int32)
     return sparse if count <= budget else dense
+
+
+def values_finite(vals: torch.Tensor) -> torch.Tensor:
+    """Finite-entry count of a float value slice (any shape): int32
+    scalar. ``inf`` is the MIN identity, so the finite entries are the only
+    payload worth shipping."""
+    return torch.isfinite(vals.reshape(-1)).sum(dtype=torch.int32)
+
+
+def _pack_slots(keep: torch.Tensor, flat: torch.Tensor, budget: int,
+                pad_value):
+    """The slots of ``compress_words`` and ``compress_values``: the flat
+    indices and entries of the leading ``keep`` entries, in ascending index
+    order, in a ``budget``-slot buffer padded with ``(0, pad_value)``, and
+    the true ``keep`` count. A prefix sum gives each kept entry its slot,
+    and entries past the budget go to a discarded slot: no host sync."""
+    total = flat.shape[0]
+    if budget < 1 or budget > total:
+        raise ValueError(f"budget must be in [1, {total}], got {budget}")
+    rank = torch.cumsum(keep, 0, dtype=torch.int64) - 1
+    slot = torch.where(keep & (rank < budget), rank, budget)
+    dev = flat.device
+    idx = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, slot, torch.arange(total, dtype=torch.int32, device=dev))
+    payload = torch.full((budget + 1,), pad_value, dtype=flat.dtype,
+                         device=dev)
+    payload.scatter_(0, slot, flat)
+    count = keep.sum(dtype=torch.int32)
+    valid = torch.arange(budget, device=dev) < count
+    return (torch.where(valid, idx[:budget], 0),
+            torch.where(valid, payload[:budget], pad_value), count)
+
+
+def compress_values(vals: torch.Tensor, budget: int):
+    """Pack the finite entries of a float value slice (any shape, flattened
+    row-major) into a ``budget``-slot sparse buffer: the float twin of
+    ``compress_words``, where an entry is empty when it is ``inf``.
+
+    Returns ``(idx int32[budget], payload[budget], count int32)``: the
+    first ``min(count, budget)`` slots hold the flat indices and values of
+    the leading finite entries in ascending index order (the reference's
+    stable argsort order), pad slots hold ``(0, inf)``. ``count`` is the
+    true finite total and may exceed ``budget``: the exchange then ships
+    the dense form."""
+    flat = vals.reshape(-1)
+    return _pack_slots(torch.isfinite(flat), flat, budget, float("inf"))
+
+
+def decompress_values(idx: torch.Tensor, payload: torch.Tensor,
+                      num_values: int) -> torch.Tensor:
+    """Min-scatter a sparse value buffer onto an all-``inf`` background of
+    ``num_values`` entries: a pad slot ``(0, inf)`` leaves slot 0 as it
+    is."""
+    flat = torch.full((num_values,), float("inf"), dtype=payload.dtype,
+                      device=payload.device)
+    return flat.index_reduce_(0, idx.long(), payload, "amin")

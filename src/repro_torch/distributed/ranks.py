@@ -51,15 +51,22 @@ def rank_device(device=None) -> torch.device:
 
 
 def save_graph(g, path) -> None:
-    """Write a ``CSRGraph``'s arrays to ``path`` (an uncompressed npz)."""
-    np.savez(path, **{name: getattr(g, name).cpu().numpy()
-                      for name in ("row_ptr", "col_idx", "src_idx")})
+    """Write a ``CSRGraph``'s or a ``WeightedCSRGraph``'s arrays to
+    ``path`` (an uncompressed npz)."""
+    np.savez(path, **{name: a.cpu().numpy()
+                      for name, a in zip(g._fields, g)})
 
 
 def load_graph(path, device):
-    """The ``CSRGraph`` that ``save_graph`` wrote, on ``device``."""
-    from repro_torch.core.csr import from_numpy_graph
+    """The graph that ``save_graph`` wrote (weighted if it was), on
+    ``device``."""
+    from repro_torch.core.csr import (from_numpy_graph,
+                                      from_numpy_weighted_graph)
     with np.load(path) as f:
+        if "weights" in f:
+            return from_numpy_weighted_graph(f["row_ptr"], f["col_idx"],
+                                             f["src_idx"], f["weights"],
+                                             device)
         return from_numpy_graph(f["row_ptr"], f["col_idx"], f["src_idx"],
                                 device)
 

@@ -37,7 +37,8 @@ def msbfs_probe_cuda(row_ptr: torch.Tensor, need_words: torch.Tensor,
     """Launch the probe. row_ptr is int32[n + 1] (row v's slots start at
     row_ptr[v], and it has row_ptr[v + 1] - row_ptr[v] of them),
     need_words int32[n, W], col_idx int32[m], frontier_words int32[nf, W]
-    with nf >= n, all contiguous on one CUDA device. Raises on anything
+    (nf may differ from n: a 2-D block's rows probe its column block's
+    frontier slice), all contiguous on one CUDA device. Raises on anything
     else."""
     if need_words.dim() != 2:
         raise ValueError("need_words must be 2-D [n, W]")
@@ -49,9 +50,9 @@ def msbfs_probe_cuda(row_ptr: torch.Tensor, need_words: torch.Tensor,
     common.check_cuda_tensor("frontier_words", frontier_words, device=dev,
                              width=w)
     nf = frontier_words.shape[0]
-    if nf < n:
-        raise ValueError(f"frontier_words has {nf} rows, fewer than n={n}")
     m = col_idx.numel()
+    if nf < 1 and m:
+        raise ValueError("frontier_words has no rows")
     acc = torch.empty_like(need_words)  # the kernel writes every word
     if n == 0 or w == 0:
         return acc

@@ -33,7 +33,8 @@ def msbfs_probe_ref(starts, deg, need_words, col_idx, frontier_words,
     ``col_idx[start + pos]``, pos < min(deg, max_pos), while the plane still
     has needed lanes unserved: retirement is per plane, as in the kernel and
     in ``repro.kernels.msbfs_probe.ref``. ``frontier_words`` is int32[nf, W]
-    with nf >= n; a neighbour id outside [0, nf) gathers nothing."""
+    (nf may differ from n); a neighbour id outside [0, nf) gathers
+    nothing."""
     acc = torch.zeros_like(need_words)
     for _, acc in probe_rounds(starts, deg, need_words, col_idx,
                                frontier_words, max_pos):

@@ -38,9 +38,9 @@ def relax_fallback_cuda(row_ptr: torch.Tensor, src_idx: torch.Tensor,
                         max_pos: int = 8) -> torch.Tensor:
     """Launch the residue fold, which updates ``base`` in place to
     min(base, residue offers) and returns it. row_ptr int32[n+1], src_idx
-    and col_idx int32[m], weights float32[m], vals float32[nf, L] with
-    nf >= n, base float32[n, L], all contiguous on one CUDA device. Raises
-    on anything else."""
+    and col_idx int32[m], weights float32[m], vals float32[nf, L] (nf may
+    differ from n, as on a 2-D block), base float32[n, L], all contiguous
+    on one CUDA device. Raises on anything else."""
     if base.dim() != 2 or vals.dim() != 2:
         raise ValueError("base and vals must be 2-D [rows, L]")
     n, lanes = base.shape
@@ -55,8 +55,8 @@ def relax_fallback_cuda(row_ptr: torch.Tensor, src_idx: torch.Tensor,
     common.check_cuda_tensor("base", base, n * lanes, dev, width=lanes,
                              dtype=torch.float32)
     nf = vals.shape[0]
-    if nf < n:
-        raise ValueError(f"vals has {nf} rows, fewer than n={n}")
+    if nf < 1 and m:
+        raise ValueError("vals has no rows")
     if n == 0 or lanes == 0 or m == 0:
         return base
     launch = _launcher()

@@ -16,7 +16,7 @@ def relax_fallback_ref(row_ptr, src_idx, col_idx, weights, vals, base,
 
     in place, with a 1-D ``index_reduce_`` (amin) over the masked [m, L]
     offers, so no scan runs down a column; returns ``base``. ``vals`` is
-    float32[nf, L] with nf >= n; ``base`` is float32[n, L]."""
+    float32[nf, L] (any nf >= 1); ``base`` is float32[n, L]."""
     m = col_idx.shape[0]
     n = base.shape[0]
     if m == 0 or n == 0:

@@ -36,7 +36,8 @@ def semiring_relax_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     """Launch the relax. row_ptr is int32[n + 1] (row v's slots start at
     row_ptr[v], and it has row_ptr[v + 1] - row_ptr[v] of them), col_idx
     int32[m], weights float32[m], vals float32[nf, L] (or float32[nf] as
-    L = 1, returned flat) with nf >= n, all contiguous on one CUDA device;
+    L = 1, returned flat; nf may differ from n: a 2-D block's rows relax
+    against its column block's values), all contiguous on one CUDA device;
     the kernel maps a thread or a warp to vertices as L asks. Raises on
     anything else."""
     flat = vals.dim() == 1
@@ -54,8 +55,8 @@ def semiring_relax_cuda(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     common.check_cuda_tensor("weights", weights, m, dev, dtype=torch.float32)
     common.check_cuda_tensor("vals", v2, device=dev, width=lanes,
                              dtype=torch.float32)
-    if nf < n:
-        raise ValueError(f"vals has {nf} rows, fewer than n={n}")
+    if nf < 1 and m:
+        raise ValueError("vals has no rows")
     acc = torch.empty((n, lanes), dtype=torch.float32, device=dev)
     if m == 0:
         acc.fill_(float("inf"))

@@ -9,7 +9,7 @@ def semiring_relax_ref(starts, deg, col_idx, weights, vals,
     """The kernel's function in tensor ops, as ``repro.kernels.
     semiring_relax.ref``: per row, the min over its first ``max_pos``
     neighbours of ``vals[neighbour] + weight`` (+inf where nothing
-    relaxes). ``vals`` is float32[nf, L] with nf >= n, or float32[nf] as
+    relaxes). ``vals`` is float32[nf, L] (any nf >= 1), or float32[nf] as
     L = 1 (returned flat)."""
     flat = vals.dim() == 1
     if flat:

@@ -26,8 +26,8 @@ retired back to the pool. This module provides:
 
 ``--device`` is the torch device of the graph and the engines: the GPU
 unless given (it raises without one); ``--device cpu`` takes the kernels'
-plain PyTorch versions. ``--ndev > 1`` raises until the sharded pools
-are ported (ROADMAP queue A item 9 (c)).
+plain PyTorch versions. ``--ndev > 1`` raises until the sharded service
+pools are ported (ROADMAP queue A item 9 (c)).
 
 ``--listen PORT`` switches to the LIVE path: the service runs its worker
 thread, an ``ObservabilityServer`` exposes /metrics, /healthz, /readyz,
@@ -204,8 +204,8 @@ def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
     epoch sized to the exact lane demand, streaming OFF (every answer at
     lane flush — the validator needs complete depth columns and BFS-tree
     parents), ``lanes=0`` adaptive pool sizing, ``delta=None`` the
-    weighted default. ``ndev > 1`` raises until the sharded pools are
-    ported (ROADMAP queue A item 9 (c))."""
+    weighted default. ``ndev > 1`` raises until the sharded service
+    pools are ported (ROADMAP queue A item 9 (c))."""
     wg = g if isinstance(g, WeightedCSRGraph) else None
     num_req = len(requests)
     if num_req < 1:
@@ -357,8 +357,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.ndev > 1:
         raise NotImplementedError(
-            "--ndev > 1 needs the sharded lane pools, whose tropical pool "
-            "runs the distributed SSSP engine (dist_sssp), which is not "
+            "--ndev > 1 needs the sharded service pools (_PackedPool and "
+            "_TropicalPool over the distributed engines), which are not "
             "ported yet (ROADMAP queue A item 9 (c))")
     if args.validate and (args.metrics_out or args.trace_out
                           or args.listen is not None or args.flight_out

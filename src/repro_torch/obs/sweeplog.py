@@ -34,7 +34,10 @@ pre-step distances are kept as a device clone (the step seats new sources
 into ``dist`` in place), and only scalars cross to the host. ``wall_ms``
 is the step alone: it starts once the snapshot's counts are read (which
 waits for the device) and ends with a device sync on the card, so it
-times the step's work and not just its launches.
+times the step's work and not just its launches. On a 2-D engine a rank
+holds its row block of the frontier or the distances, so the counts are
+summed along "row" (a collective: every rank records) and are the whole
+graph's, as on every other engine.
 
 How the delta read-back works: within one sweep every (trace row, queue
 slot) cell is written at most once, from its init value (-1 direction /
@@ -54,6 +57,8 @@ from dataclasses import asdict, dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.core.exchange import GridComm, psum
 
 __all__ = [
     "LayerRecord", "SweepRecorder", "drive_recorded", "record_step",
@@ -199,6 +204,26 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _grid_rows(state) -> GridComm | None:
+    comm = getattr(state, "comm", None)
+    return comm if isinstance(comm, GridComm) else None
+
+
+def _counts(state, *counts: torch.Tensor) -> list[int]:
+    """Device counts over the state's rows as host ints, summed over the
+    grid column's row blocks on a 2-D state: the whole graph's counts."""
+    total = torch.stack([c.to(torch.int64) for c in counts])
+    grid = _grid_rows(state)
+    if grid is not None:
+        total = psum(total, grid.row)
+    return [int(x) for x in total.cpu()]
+
+
+def _total_words(state, t: torch.Tensor) -> int:
+    grid = _grid_rows(state)
+    return t.numel() * (1 if grid is None else grid.pr)
+
+
 def snapshot_state(state, kind: str) -> dict:
     """Pre-step snapshot of the trace surfaces the step will write.
 
@@ -212,16 +237,16 @@ def snapshot_state(state, kind: str) -> dict:
             trace_bucket=np.array(state.trace_bucket),
             trace_phase=np.array(state.trace_phase),
             dist=dist,
-            frontier_words=int(torch.isfinite(dist).sum()),
-            total_words=int(dist.numel()),
+            frontier_words=_counts(state, torch.isfinite(dist).sum())[0],
+            total_words=_total_words(state, dist),
             exch=exch,
             t0=time.perf_counter(),
         )
     frontier = state.frontier
     return dict(
         trace_dir=np.array(state.trace_dir),
-        frontier_words=int(torch.count_nonzero(frontier)),
-        total_words=int(frontier.numel()),
+        frontier_words=_counts(state, torch.count_nonzero(frontier))[0],
+        total_words=_total_words(state, frontier),
         exch=exch,
         t0=time.perf_counter(),
     )
@@ -255,8 +280,8 @@ def record_step(recorder: SweepRecorder, pre: dict, state, kind: str,
         rows, slots = rows[order], slots[order]
         dirs = phase[rows, slots]
         dist = state.dist
-        improved, finite = (int(x) for x in torch.stack(
-            [(dist < pre["dist"]).sum(), torch.isfinite(dist).sum()]).cpu())
+        improved, finite = _counts(state, (dist < pre["dist"]).sum(),
+                                   torch.isfinite(dist).sum())
         rec = LayerRecord(
             layer=int(state.sweep_steps) - 1, engine=recorder.engine,
             kind=kind, mode=_mode_of(dirs, _SSSP_MODES),
@@ -287,7 +312,7 @@ def record_step(recorder: SweepRecorder, pre: dict, state, kind: str,
     # the paper's per-layer work counter: TD lanes inspect the frontier's
     # out-edges (e_f), BU lanes the unvisited set's (e_u)
     edges = int(np.where(dirs == 0, ef, eu).sum())
-    frontier_after = int(torch.count_nonzero(state.frontier))
+    frontier_after = _counts(state, torch.count_nonzero(state.frontier))[0]
     rec = LayerRecord(
         layer=int(state.sweep_layers) - 1, engine=recorder.engine,
         kind=kind, mode=_mode_of(dirs, _BFS_MODES),

@@ -38,9 +38,10 @@ width don't ride the shared pools at all: they execute inline through
 as ``run_query``, so every answer the service produces is parity-checked
 against the offline path by construction.
 
-In the port the pools are the host engines on the graph's device (the
-reference's sharded pools wait for the distributed SSSP engine, ROADMAP
-queue A item 9 (c): ``ndev > 1`` raises). A service built on a CUDA graph
+In the port the pools are the host engines on the graph's device. The
+reference's sharded pools (``ndev > 1``) are not ported yet and raise:
+they need one front door over the SPMD ranks (ROADMAP queue A item 9
+(c)). A service built on a CUDA graph
 runs the CUDA kernels through the engines, or raises; nothing falls back
 to the plain versions on the card.
 The per-layer read-out copies the live depth columns and the flushed
@@ -347,9 +348,9 @@ class AnalyticsService:
                 f"config plus {sorted(overrides)}")
         if config.ndev > 1:
             raise NotImplementedError(
-                "ndev > 1 needs the sharded lane pools, whose tropical "
-                "pool runs the distributed SSSP engine (dist_sssp), which "
-                "is not ported yet (ROADMAP queue A item 9 (c))")
+                "ndev > 1 needs the sharded service pools (_PackedPool and "
+                "_TropicalPool over the distributed engines), which are not "
+                "ported yet (ROADMAP queue A item 9 (c))")
         self.config = config
         self.telemetry = config.telemetry
         # metrics always work (metrics_text() on a bare service exposes

@@ -106,7 +106,7 @@ def segment_reduce(vals: torch.Tensor, row_ptr: torch.Tensor,
 def semiring_spmv(g: CSRGraph, vals: torch.Tensor, weights,
                   sr: Semiring) -> torch.Tensor:
     """One lane-batched semiring SpMV: ``out[v, l] = ADD_e vals[col_e, l]
-    MUL w_e`` over row v's edge slots. ``vals`` is [nf, L] with nf >= n
+    MUL w_e`` over row v's edge slots. ``vals`` is [nf, L] (any nf >= 1)
     (rows are local, ``col_idx`` indexes ``vals``); ``weights`` is [m] or
     None for the adjacency pattern (every edge weighs ``sr.one``)."""
     contrib = vals[g.col_idx.clamp(0, vals.shape[0] - 1)]   # [m, L]

@@ -32,6 +32,15 @@ step's phase skips, the bucket advance, exhaustion, the step cap and the
 flushes. On a CUDA graph every relaxation goes through the
 ``semiring_relax`` and ``relax_fallback`` kernels; on the CPU it takes the
 plain path that ``relax_impl`` names.
+
+The engine also runs sharded (``core/dist_sssp.py``): a state whose
+``comm`` is set relaxes the rank's block of the graph. On a 1-D partition
+(``comm`` a ``MeshComm``) the values are replicated and the block's
+candidates are MIN-exchanged over the mesh; on a 2-D grid (``comm`` a
+``GridComm``) the values are row blocks, the step gathers the column
+block's masked source values along "row" and MIN-folds the partial
+candidates along "col", and the read-back's minima are taken over the grid
+column first. The control is the same on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr import WeightedCSRGraph
+from repro_torch.core.exchange import (GridComm, exchange_expand_values,
+                                       exchange_reduce_min, grid_sum, pmin)
 from repro_torch.core.packed import queue_claims, to_device
 from repro_torch.device import resolve_device
 from repro_torch.traversal.semiring import INF, tropical_relax
@@ -106,6 +117,12 @@ class SSSPState(NamedTuple):
     iterating: np.ndarray | None = None  # bool[L] lane has light requests
     #                                      pending; None = not read yet
     phase_w: dict | None = None          # bucket width -> (light, heavy) weights
+    base: int = 0                        # global row of dist's row 0
+    comm: object = None                  # MeshComm (1-D) or GridComm (2-D);
+    #                                      None = one device
+    exch_bytes: int = 0                  # exchange wire bytes, all ranks
+    exch_log: np.ndarray | None = None   # int64[MAX_SSSP_TRACE] bytes per
+    #                                      step; None = not metered
 
     @property
     def num_lanes(self) -> int:
@@ -184,11 +201,19 @@ def sssp_engine_init(wg: WeightedCSRGraph, capacity: int,
                      lanes: int = DEFAULT_LANES) -> SSSPState:
     """Fresh engine on the graph's device: all lanes idle, an empty source
     queue of ``capacity`` slots."""
+    return fresh_sssp_state(wg.n, wg.device, capacity, lanes)
+
+
+def fresh_sssp_state(n: int, dev, capacity: int, lanes: int, base: int = 0,
+                     comm=None) -> SSSPState:
+    """An idle engine whose row arrays hold ``n`` rows from global row
+    ``base`` on ``dev``; a sharded one (``comm`` set) meters its
+    exchanges."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     if lanes < 1:
         raise ValueError(f"lanes must be >= 1, got {lanes}")
-    n, dev, cap = wg.n, wg.device, capacity
+    cap = capacity
     return SSSPState(
         dist=torch.full((n, lanes), INF, dtype=torch.float32, device=dev),
         relaxed=torch.zeros((n, lanes), dtype=torch.bool, device=dev),
@@ -202,7 +227,9 @@ def sssp_engine_init(wg: WeightedCSRGraph, capacity: int,
         out_truncated=np.zeros(cap + 1, bool),
         trace_bucket=np.full((MAX_SSSP_TRACE, cap + 1), -1, np.int32),
         trace_phase=np.full((MAX_SSSP_TRACE, cap + 1), -1, np.int32),
-        iterating=np.zeros(lanes, bool), phase_w={})
+        iterating=np.zeros(lanes, bool), phase_w={}, base=base, comm=comm,
+        exch_log=None if comm is None else np.zeros(MAX_SSSP_TRACE,
+                                                    np.int64))
 
 
 def sssp_state_from_numpy(fields: dict, device=None) -> SSSPState:
@@ -278,9 +305,10 @@ def _refill(wg: WeightedCSRGraph, s: SSSPState,
             lane_d: np.ndarray) -> SSSPState:
     """Claim pending queue slots for idle lanes and seat their sources at
     distance 0, bucket 0. Idle lanes already hold inf distances and no
-    relaxed flags, so seating writes one zero per claimed lane, in place;
-    a fresh lane iterates on its first step exactly when its source is a
-    vertex of the graph (and its width is positive in float32)."""
+    relaxed flags, so seating writes one zero per claimed lane, in place,
+    on the ranks that hold the source's row; a fresh lane iterates on its
+    first step exactly when its source is a vertex of the (padded) graph
+    (and its width is positive in float32)."""
     cap = s.capacity
     if not ((s.lane_qidx >= cap).any() and s.next_root < s.queued):
         return s
@@ -288,11 +316,16 @@ def _refill(wg: WeightedCSRGraph, s: SSSPState,
                                      s.queue)
     lanes = np.flatnonzero(claim)
     roots = root[lanes]
-    keep = (roots >= 0) & (roots < wg.n)
-    if keep.any():
-        dev = wg.device
-        s.dist[to_device(roots[keep].astype(np.int64), dev),
-               to_device(lanes[keep], dev)] = 0.0
+    rows = s.dist.shape[0]
+    n = rows * (s.comm.pr if isinstance(s.comm, GridComm) else 1)
+    keep = (roots >= 0) & (roots < n)
+    own = keep & (roots >= s.base) & (roots < s.base + rows)
+    if own.any():
+        # through the flat index: an indexed assignment of a scalar would
+        # make the host wait for the device
+        flat = (roots[own] - s.base).astype(np.int64) * s.num_lanes \
+            + lanes[own]
+        s.dist.view(-1).index_fill_(0, to_device(flat, wg.device), 0.0)
     iterating = s.iterating.copy()
     iterating[lanes] = keep & (lane_d[lanes] > 0)
     return s._replace(
@@ -357,14 +390,15 @@ def plan_step(wg: WeightedCSRGraph, s: SSSPState, delta) -> StepPlan:
                     in_bucket, in_bucket & ~s.relaxed)
 
 
-def phase_inputs(wg: WeightedCSRGraph, s: SSSPState, delta, p: StepPlan):
-    """Yield ``(phase, weights, vals)`` for each masked relax of the step.
+def phase_groups(wg: WeightedCSRGraph, s: SSSPState, delta, p: StepPlan):
+    """Yield ``(phase, weights, on)`` for each masked relax of the step,
+    ``on`` the bool[L] lanes (on the device) that take part.
 
     Lanes are grouped by distinct bucket width (the light/heavy split is
-    per edge); each group runs a light relax (its iterating lanes' pending
-    members over light weights) and a heavy one (its settling lanes'
-    members over heavy weights), each skipped when no lane of the group is
-    in that phase, as the reference's ``lax.cond`` skips them."""
+    per edge); each group runs a light relax (its iterating lanes over
+    light weights) and a heavy one (its settling lanes over heavy
+    weights), each skipped when no lane of the group is in that phase, as
+    the reference's ``lax.cond`` skips them."""
     widths = (sorted(set(delta)) if isinstance(delta, tuple)
               else [float(delta)])
     lane_widths = (delta if isinstance(delta, tuple)
@@ -372,19 +406,82 @@ def phase_inputs(wg: WeightedCSRGraph, s: SSSPState, delta, p: StepPlan):
     for dv in widths:
         group = np.array([lw == dv for lw in lane_widths])
         light_w, heavy_w = _phase_weights(wg, s, dv)
-        for phase, on, members, w in (
-                ("light", p.iterating & group, p.light_pending, light_w),
-                ("heavy", p.settling & group, p.in_bucket, heavy_w)):
+        for phase, on, w in (("light", p.iterating & group, light_w),
+                             ("heavy", p.settling & group, heavy_w)):
             if on.any():
-                yield phase, w, torch.where(
-                    members & to_device(on, wg.device), s.dist, INF)
+                yield phase, w, to_device(on, wg.device)
+
+
+def phase_inputs(wg: WeightedCSRGraph, s: SSSPState, delta, p: StepPlan):
+    """Yield ``(phase, weights, vals)`` for each masked relax of the step
+    (``phase_groups``): the light relax takes its lanes' pending members,
+    the heavy one its lanes' bucket members, +inf elsewhere."""
+    for phase, w, on in phase_groups(wg, s, delta, p):
+        members = p.light_pending if phase == "light" else p.in_bucket
+        yield phase, w, torch.where(members & on, s.dist, INF)
+
+
+def source_values(s: SSSPState, p: StepPlan) -> torch.Tensor:
+    """The union of every phase's source values: a lane is in one phase,
+    so its pending members (light) or its bucket members (heavy) at their
+    distance, +inf elsewhere. What a 2-D step ships, once."""
+    members = torch.where(to_device(p.iterating, s.dist.device)[None, :],
+                          p.light_pending, p.in_bucket)
+    return torch.where(members, s.dist, INF)
+
+
+def _sharded_candidates(wg: WeightedCSRGraph, s: SSSPState, delta,
+                        p: StepPlan, max_pos: int, relax_impl: str,
+                        compress: bool):
+    """The step's candidate distances of the state's rows on a sharded
+    state, and the exchange bytes of the step: a device int64 tensor whose
+    sum is the bytes all ranks shipped.
+
+    1-D: the phases relax the rank's block against the replicated values;
+    the block's candidates, placed on an +inf background, are MIN-exchanged
+    over the mesh (``exchange_reduce_min``). 2-D: the rank's chunk of the
+    union source values (``source_values``) is gathered along "row" into
+    the column block's slice ``x``, each phase relaxes the block against
+    ``x`` masked to its lanes, and the partial candidates are MIN-folded
+    along "col"."""
+    rows, lanes, dev = s.dist.shape[0], s.num_lanes, wg.device
+    grid = s.comm if isinstance(s.comm, GridComm) else None
+    cand = torch.full((wg.n, lanes), INF, dtype=torch.float32, device=dev)
+    if grid is None:
+        for _, w, vals in phase_inputs(wg, s, delta, p):
+            torch.minimum(cand, _relax(wg, w, vals, max_pos, relax_impl),
+                          out=cand)
+        placed = torch.full((rows, lanes), INF, dtype=torch.float32,
+                            device=dev)
+        # the ranks' blocks lie in mesh order (the values are replicated,
+        # so the state's own rows start at 0)
+        lo = s.comm.index * wg.n
+        placed[lo:lo + wg.n] = cand
+        cand, nbytes = exchange_reduce_min(placed, s.comm, compress)
+        return cand, to_device(np.array([nbytes], np.int64), dev)
+    chunk = rows // grid.pc
+    x, b_expand = exchange_expand_values(
+        source_values(s, p)[grid.j * chunk:(grid.j + 1) * chunk], grid.row,
+        compress)
+    for _, w, on in phase_groups(wg, s, delta, p):
+        torch.minimum(cand, _relax(wg, w, torch.where(on, x, INF), max_pos,
+                                   relax_impl), out=cand)
+    cand, b_fold = exchange_reduce_min(cand, grid.col, compress)
+    # each expand group's total once (grid row 0), each fold group's once
+    # (grid column 0): the sum over the grid is the reference's psums
+    sent = to_device(np.array([b_expand * (grid.i == 0),
+                               b_fold * (grid.j == 0)], np.int64), dev)
+    return cand, grid_sum(sent, grid)
 
 
 def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
-               relax_impl: str, max_steps: int) -> SSSPState:
+               relax_impl: str, max_steps: int,
+               compress: bool = False) -> SSSPState:
     """One engine step: refill idle lanes, run the light/heavy phase each
     lane is in, advance settled buckets, flush finished lanes. Reads the
-    device back once."""
+    device back once. ``wg`` is the graph, or the rank's block of it for a
+    sharded state; ``compress`` ships a sharded step's exchanges through
+    the sparse value codec."""
     dev = wg.device
     cap = s.capacity
     s = prepare_step(wg, s, delta)
@@ -393,10 +490,16 @@ def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
 
     # every candidate folds into the new distances by min, which is exact
     # in any order
-    new_dist = s.dist.clone()
-    for _, w, vals in phase_inputs(wg, s, delta, p):
-        torch.minimum(new_dist, _relax(wg, w, vals, max_pos, relax_impl),
-                      out=new_dist)
+    sent = None
+    if s.comm is None:
+        new_dist = s.dist.clone()
+        for _, w, vals in phase_inputs(wg, s, delta, p):
+            torch.minimum(new_dist, _relax(wg, w, vals, max_pos, relax_impl),
+                          out=new_dist)
+    else:
+        cand, sent = _sharded_candidates(wg, s, delta, p, max_pos,
+                                         relax_impl, compress)
+        new_dist = torch.minimum(s.dist, cand)
 
     changed = new_dist < s.dist
     # sources just relaxed are served at their distance; a vertex whose
@@ -408,18 +511,29 @@ def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
     # (empty buckets are never visited), at least one bucket on. XLA
     # compiles the reference's floor(min / delta) for a static delta into
     # floor(min * f32(1/delta)), so the port multiplies by that reciprocal.
-    # The next bucket's request set is read in the same read-back: it
-    # decides whether the lane iterates on the next step.
-    mu = torch.where(new_dist >= b_hi, new_dist, INF).amin(dim=0)
+    # The next bucket's request set is non-empty iff the least distance not
+    # yet relaxed lies below its ceiling: it decides whether the lane
+    # iterates on the next step, and is read in the same read-back. On a
+    # grid both minima are taken over the grid column's row blocks first.
+    mins = torch.stack([
+        torch.where(new_dist >= b_hi, new_dist, INF).amin(dim=0),
+        torch.where(relaxed, INF, new_dist).amin(dim=0)])
+    if isinstance(s.comm, GridComm):
+        mins = pmin(mins, s.comm.row)
+    mu, least_open = mins[0], mins[1]
     bucket = to_device(s.lane_bucket, dev)
     advance = to_device(settling, dev) & torch.isfinite(mu)
     recip = to_device(np.float32(1) / lane_d, dev)
     jump = torch.floor(torch.where(advance, mu, 0.0) * recip).to(torch.int32)
     next_bucket = torch.where(advance, torch.maximum(jump, bucket + 1), bucket)
     b_next = (next_bucket.to(torch.float32) + 1) * to_device(lane_d, dev)
-    iterate_next = ((new_dist < b_next) & ~relaxed).any(dim=0)
     back = torch.stack([mu.view(torch.int32), next_bucket,
-                        iterate_next.to(torch.int32)]).cpu().numpy()
+                        (least_open < b_next).to(torch.int32)]).reshape(-1)
+    if sent is not None:         # a sharded step's bytes, in the same read
+        back = torch.cat([back, sent.view(torch.int32)])
+    back = back.cpu().numpy()
+    nbytes = int(back[3 * s.num_lanes:].view(np.int64).sum())
+    back = back[:3 * s.num_lanes].reshape(3, -1)
     mu_h, next_bucket = back[0].view(np.float32), back[1]
 
     exhausted = settling & ~np.isfinite(mu_h)
@@ -451,6 +565,10 @@ def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
         # the very next step
         new_dist.index_fill_(1, done_t, INF)
         relaxed.index_fill_(1, done_t, False)
+    exch_log = s.exch_log
+    if exch_log is not None:
+        exch_log = exch_log.copy()
+        exch_log[min(s.sweep_steps, MAX_SSSP_TRACE - 1)] += nbytes
     return s._replace(
         dist=new_dist, relaxed=relaxed,
         lane_bucket=np.where(finished, 0, next_bucket).astype(np.int32),
@@ -459,7 +577,8 @@ def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
         sweep_steps=s.sweep_steps + 1, out_steps=out_steps,
         out_truncated=out_truncated, trace_bucket=trace_bucket,
         trace_phase=trace_phase,
-        iterating=back[2].astype(bool) & active & ~finished)
+        iterating=back[2].astype(bool) & active & ~finished,
+        exch_bytes=s.exch_bytes + nbytes, exch_log=exch_log)
 
 
 def sssp_engine_step(wg: WeightedCSRGraph, state: SSSPState, delta,

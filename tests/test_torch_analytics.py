@@ -201,13 +201,13 @@ def test_as_engine_refuses_overrides(graphs):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    # the sharded engine runs on the ranks of a process group; without one
-    # it says how to launch
+    # the sharded engines run on the ranks of a process group; without one
+    # they say how to launch
     (dict(ndev=2), RuntimeError, "run_ranks"),
-    (dict(grid=(2, 1)), NotImplementedError, r"queue A item 9 \(b\)"),
-    (dict(compress=True), NotImplementedError, r"queue A item 9 \(b\)"),
-    (dict(grid=(2, 2), ndev=4), NotImplementedError,
-     r"queue A item 9 \(b\)")])
+    (dict(grid=(2, 1)), RuntimeError, "run_ranks"),
+    # the wire codec is the 2-D exchange's knob, as in the reference
+    (dict(compress=True), ValueError, r"grid=\(pr, pc\)"),
+    (dict(grid=(2, 2), ndev=4), RuntimeError, "run_ranks")])
 def test_unported_engine_knobs_raise(graphs, kwargs, exc, match):
     with pytest.raises(exc, match=match):
         ta.LaneEngine(graphs["path"].g, **kwargs)

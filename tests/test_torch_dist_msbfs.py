@@ -8,7 +8,8 @@ reference's property cases (``tests/test_dist_msbfs.py``, through its
 ``build_case``) with fewer lanes than roots, in the forced modes, on a
 stream that enqueues roots mid-sweep, and through early retirement and the
 ``LayerReadout`` surface. ``run_graph500(batched=True, ndev=2)`` and
-``LaneEngine(ndev=2)`` must give their one-device results.
+``LaneEngine(ndev=2)`` (its boolean and its weighted sweeps) must give
+their one-device results.
 
 The reference runs once per word width, in a child process with four
 forced host devices (``LANE_WORD_BITS`` and ``JAX_ENABLE_X64`` pinned as
@@ -265,10 +266,11 @@ def entry_points_rank():
     recorded = LaneEngine(g, ndev=2, lanes=8, telemetry=tel)
     out["engine/recorded"] = _fields(recorded.sweep(roots))
     out["engine/records"] = len(tel.sweeps[0].records)
-    try:
-        sharded.sssp_sweep(roots[:2])
-    except NotImplementedError as exc:
-        out["sssp_refusal"] = str(exc)
+    # the weighted sweep of the same engine runs the sharded SSSP engine
+    for name, eng in (("one", LaneEngine(wg, lanes=8)), ("two", sharded)):
+        res = eng.sssp_sweep(roots[:4])
+        out[f"sssp/{name}"] = {f: getattr(res, f).numpy()
+                               for f in res._fields}
     return out
 
 
@@ -412,7 +414,9 @@ def test_lane_engine_sharded_equals_one_device(entry_points):
     for f in FIELDS[1:]:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
     assert entry_points["engine/records"] > 0
-    assert "ROADMAP queue A item 9 (c)" in entry_points["sssp_refusal"]
+    got, want = entry_points["sssp/two"], entry_points["sssp/one"]
+    for f, a in want.items():
+        np.testing.assert_array_equal(got[f], a, err_msg=f"sssp {f}")
 
 
 def test_host_engine_shapes_and_guards():

@@ -19,7 +19,8 @@ from repro_torch.graph.generator import (rmat_graph, rmat_weighted_graph,
                                          uniform_random_graph,
                                          uniform_random_weighted_graph)
 from repro_torch.graph.graph500 import run_graph500
-from repro_torch.benchmarks import (analytics_bench, dist_msbfs_teps,
+from repro_torch.benchmarks import (analytics_bench, dist2d_teps,
+                                    dist_msbfs_teps, dist_sssp_teps,
                                     fig3_teps, sssp_teps, table2_switching,
                                     table3_maxpos, table4_counters)
 from repro_torch.configs.reduced import reduce_arch
@@ -82,7 +83,10 @@ def test_port_files_are_found():
             "serving/service.py", "launch/serve_bfs.py",
             "core/exchange.py", "core/dist_bfs.py", "core/dist_msbfs.py",
             "distributed/__init__.py", "distributed/compression.py",
-            "distributed/ranks.py", "benchmarks/dist_msbfs_teps.py"} <= names
+            "distributed/ranks.py", "benchmarks/dist_msbfs_teps.py",
+            "core/dist2d.py", "core/dist_sssp.py",
+            "benchmarks/dist2d_teps.py",
+            "benchmarks/dist_sssp_teps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -157,8 +161,9 @@ def test_entry_points_raise_without_gpu(no_gpu):
         launch_bfs.main(["--scale", "6", "--roots", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve_bfs.main(["--scale", "6", "--queries", "2"])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        dist_msbfs_teps.main(["--smoke"])
+    for script in (dist_msbfs_teps, dist2d_teps, dist_sssp_teps):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(["--smoke"])
 
 
 def test_training_entry_points_raise_without_gpu(no_gpu):
