@@ -109,6 +109,23 @@ phase prints one JSON line:
            64-request trace of the serve phase's mix at the graph's scale,
            with its own asserts (streamed answers bit-equal to flushed
            ones, a mean khop gain of at least one layer), and its points;
+  serve_dist      the sharded service pools on one NCCL rank (run_ranks),
+           the weighted graph by file: AnalyticsService(mesh=) over a
+           1-rank mesh (the front door, with no followers) replays the
+           serve phase's trace with a recorder and the SLO monitor (every
+           RequestRecord field and answer wire, by sha256, equal to the
+           host replay's; the replay's wall beside the host's; the
+           recorders named dist_msbfs and dist_sssp), the ms and host syncs
+           of the first ticks of the trace's first burst on the host and
+           the sharded service, serve(validate=True) over 64 bfs requests
+           (every BFS tree validated), serve_bench on the sharded pools
+           (16 queries, its own asserts) and, after the trace's first burst,
+           one khop over the HTTP plane against run_query; the launches of
+           each part;
+  examples        the six graph-side examples (repro_torch.examples)
+           through their main on the card, distributed_bfs on one NCCL rank
+           (--ndev 1): each one's seconds, launches (the rank's added) and
+           returned values, and the kernels each must launch;
   dist_kernel     the kernels of the 1-D distributed engines on the
            card without a process group: bottom_up_probe on every
            bottom-up layer of the probe root's BFS, msbfs_probe and both
@@ -183,7 +200,8 @@ phase prints one JSON line:
            dist record of bottom_up_probe, msbfs_probe and segment_or; the
            dist2d record of msbfs_probe and segment_or and the dist_sssp
            record of semiring_relax and relax_fallback: launches, block
-           and whole-graph ms).
+           and whole-graph ms; the serve_dist launches of the serving
+           kernels by part and every kernel's examples launches).
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 exits nonzero; so does a machine without a GPU or a directory without the
 repository's src/, or a u64 child that fails or outlives its time limit
@@ -416,6 +434,9 @@ DIST_KERNELS = ("bottom_up_probe", "msbfs_probe", "segment_or")
 GRID = (2, 2)
 GRID_CHECKS = ((1, 4), (4, 1))
 SYNC_STEPS = 12
+# the serve_dist phase's serve_bench queries (the serve_bench phase runs
+# SERVE_REQUESTS on the host pools)
+SERVE_DIST_BENCH_QUERIES = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -2167,7 +2188,8 @@ def traces_equal(max_trace, names):
 def run_serve(wg, args):
     """The serving layer on the weighted graph: replay, HTTP plane, the
     answers against run_query, the recorders, the doctor. Returns the
-    launches of the replay and the HTTP request."""
+    launches of the replay and the HTTP request, and the replay's digest
+    (``replay_digest``) and wall."""
     g = wg.csr
     out_dir = args.out or tempfile.mkdtemp(prefix="chip_smoke_serve_")
     os.makedirs(out_dir, exist_ok=True)
@@ -2190,7 +2212,12 @@ def run_serve(wg, args):
     timed(svc, "_collect_tropical", acc, "collect")
     torch.cuda.synchronize()
     common.reset_launches()
+    t0 = time.perf_counter()
     stats = svc.replay(trace)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    host = dict(digest=replay_digest(svc, trace), wall_s=stats["wall_s"],
+                seconds=replay_s)
     replay_layers = stats["layers"]
     # the replay's split: the wrappers go on adding to the dict they hold
     acc = dict(acc)
@@ -2276,8 +2303,28 @@ def run_serve(wg, args):
                    answered_early=http_rec.answered_early,
                    sojourn=http_rec.sojourn),
          slo=svc.slo.peek(), per_type=stats["per_type"], launches=launches,
-         offline_check_s=offline_s, flight_log=flight)
-    return launches
+         offline_check_s=offline_s, flight_log=flight, replay_s=replay_s,
+         replay_digest=host["digest"])
+    return launches, host
+
+
+def replay_digest(svc, trace) -> str:
+    """sha256 over every request of a replayed trace, in trace order: its
+    RequestRecord's lifecycle fields and its answer's wire JSON, the
+    request id aside (ids are drawn from a per-process counter)."""
+    h = hashlib.sha256()
+    for req in trace:
+        rec = svc.record(req.id)
+        wire = (None if rec.answer is None
+                else rec.answer.to_wire(include_result=True))
+        if wire is not None:
+            wire.pop("id")
+        h.update(json.dumps([
+            rec.status, rec.reason, rec.engine,
+            None if rec.slots is None else [rec.slots.start, rec.slots.stop],
+            rec.submit_layer, rec.dispatch_layer, rec.answer_layer,
+            rec.answered_early, rec.sojourn, wire], sort_keys=True).encode())
+    return h.hexdigest()
 
 
 def wcloseness_check(eng, wg, res) -> dict:
@@ -2353,6 +2400,227 @@ def run_serve_bench(wg, args):
         check(launches[name] > 0, f"{name} was not launched by serve_bench")
     emit("serve_bench", scale=args.scale, queries=SERVE_REQUESTS,
          mix=SERVE_MIX, points=points, seconds=seconds, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# serve_dist and examples: the sharded service pools on one NCCL rank, and
+# the graph-side examples on the card
+# ---------------------------------------------------------------------------
+
+
+def tick_rows(svc, trace, ticks: int) -> list:
+    """The first ``ticks`` scheduler ticks of a service fed the trace's
+    first burst: wall ms (ending with a device sync) and host syncs of
+    each."""
+    svc.warmup()
+    for req in trace[:SERVE_BURST]:
+        svc.submit(req)
+    rows = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        syncs = syncs_of(svc.step)
+        torch.cuda.synchronize()
+        rows.append(dict(ms=(time.perf_counter() - t0) * 1e3, syncs=syncs))
+    return rows
+
+
+def serve_dist_rank(graph_path, scale, host_digest) -> dict:
+    """The serve_dist phase's rank: one NCCL rank on cuda:0, the sharded
+    service pools over a 1-rank mesh (the front door with no followers).
+    The serve phase's replay (digest against the host replay's), a
+    tick's syncs and ms beside the host service's, the compat path
+    serve(validate=True) over 64 bfs requests, serve_bench on the sharded
+    pools, and one khop over the HTTP plane; each part's launches."""
+    from repro_torch.launch.serve_bfs import bfs_requests, serve
+    dev = rank_device()
+    common.load_library()
+    t0 = time.perf_counter()
+    wg = load_graph(graph_path, dev)
+    g = wg.csr
+    out = dict(load_seconds=time.perf_counter() - t0, device=str(dev),
+               backend=str(torch.distributed.get_backend()))
+    mesh = host_mesh(1)
+    trace = synthetic_trace(g.n, SERVE_REQUESTS, mix=SERVE_MIX,
+                            burst=SERVE_BURST, every=SERVE_EVERY, seed=SEED)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(common.LAUNCHES)
+
+    tel = Telemetry(record_sweeps=True)
+    svc = AnalyticsService(wg, ServiceConfig(lanes=0, telemetry=tel,
+                                             slo=SERVE_SLO, mesh=mesh))
+    check(svc.engine.dg is not None and svc.front_door,
+          "the service on a 1-rank mesh is not sharded")
+
+    acc = {}
+
+    def replay(svc):
+        svc.warmup()
+        # the host time split as the serve phase splits it
+        for pool in (svc._pool("packed"), svc._pool("tropical")):
+            timed(pool, "step", acc, "step", sync=True)
+        timed(svc._packed, "readout", acc, "readout")
+        timed(svc, "_collect_packed", acc, "collect")
+        timed(svc, "_collect_tropical", acc, "collect")
+        stats, seconds, launches = counted(lambda: svc.replay(trace))
+        return stats, seconds, launches, replay_digest(svc, trace)
+    stats, seconds, launches, dig = svc.lead(replay)
+    tel.close()
+    check(stats["done"] == SERVE_REQUESTS and stats["rejected"] == 0,
+          f"the sharded replay answered {stats['done']} of "
+          f"{SERVE_REQUESTS}")
+    check(dig == host_digest,
+          "the sharded replay's records or answers differ from the host "
+          "replay's")
+    engines = sorted({rec.engine for rec in tel.sweeps})
+    check(engines == ["dist_msbfs", "dist_sssp"],
+          f"the sharded pools recorded {engines}")
+    out["replay"] = dict(
+        seconds=seconds, wall_s=stats["wall_s"], layers=stats["layers"],
+        answered_early=stats["answered_early"], sssp_steps=stats["sssp_steps"],
+        aggregate_mteps=stats["aggregate_mteps"], launches=launches,
+        digest=dig, recorded_sweeps=len(tel.sweeps), recorders=engines,
+        host_s=dict(step=acc.get("step", 0.0),
+                    readout=acc.get("readout", 0.0),
+                    answers=acc.get("collect", 0.0) - acc.get("readout", 0.0)))
+
+    ticks = {}
+    for name, where in (("host", {}), ("sharded", dict(mesh=mesh))):
+        svc = AnalyticsService(wg, ServiceConfig(lanes=0, **where))
+        ticks[name] = svc.lead(lambda svc: tick_rows(svc, trace, SYNC_STEPS))
+    out["ticks"] = {name: dict(
+        rows=rows, syncs=sorted({r["syncs"] for r in rows}),
+        ms_median=statistics.median(r["ms"] for r in rows))
+        for name, rows in ticks.items()}
+
+    roots = sample_roots(g, SERVE_REQUESTS, seed=SEED + 1)
+    # the validator's span: serve looks it up when it validates
+    import repro_torch.graph.validate as validate
+    spans, validate_tree = [], validate.validate_bfs_tree
+
+    def timed_validate(*a):
+        t = time.perf_counter()
+        out = validate_tree(*a)
+        spans.append((t, time.perf_counter()))
+        return out
+    validate.validate_bfs_tree = timed_validate
+    try:
+        st, seconds, launches = counted(lambda: serve(
+            wg, bfs_requests(roots), 0, SERVE_BURST, SERVE_EVERY,
+            validate=True, mesh=mesh))
+    finally:
+        validate.validate_bfs_tree = validate_tree
+    check(st["validated"] and st["requests"] == SERVE_REQUESTS,
+          "the compat path did not validate its trees")
+    check(len(spans) == SERVE_REQUESTS,
+          f"the compat path validated {len(spans)} trees")
+    out["compat"] = dict(seconds=seconds, launches=launches,
+                         layers=st["layers"], lanes=st["lanes"],
+                         ndev=st["ndev"], validated=len(spans),
+                         replay_wall_s=st["wall_s"],
+                         validate_s=max(e for _, e in spans)
+                         - min(b for b, _ in spans),
+                         validate_tree_s_mean=statistics.mean(
+                             e - b for b, e in spans))
+
+    points, seconds, launches = counted(lambda: serve_bench.bench_points(
+        scale, EDGEFACTOR, SEED, queries=SERVE_DIST_BENCH_QUERIES,
+        mix=SERVE_MIX, graph=wg, mesh=mesh))
+    out["bench"] = dict(queries=SERVE_DIST_BENCH_QUERIES, points=points,
+                        seconds=seconds, launches=launches)
+
+    svc = AnalyticsService(wg, ServiceConfig(lanes=0, mesh=mesh))
+    root = int(sample_roots(g, 1, seed=SEED + 5)[0])
+
+    def live(svc):
+        # the trace's first burst replayed first, so /metrics has requests
+        svc.warmup()
+        svc.replay(trace[:SERVE_BURST])
+        return counted(lambda: serve_http(svc, root))
+    (env, answer, round_trip_ms, codes), seconds, launches = svc.lead(live)
+    same_answer(env.id, answer.result, svc.record(env.id).answered_early,
+                run_query(LaneEngine(wg), env.query))
+    out["live"] = dict(round_trip_ms=round_trip_ms, codes=codes,
+                       seconds=seconds, launches=launches)
+    # a one-root khop of depth 2 runs top-down layers only: segment_or
+    for part, kernels in (("replay", SERVE_KERNELS), ("compat", BATCHED_KERNELS),
+                          ("bench", SERVE_KERNELS), ("live", ("segment_or",))):
+        for name in kernels:
+            check(out[part]["launches"][name] > 0,
+                  f"{name} was not launched by the sharded {part}")
+    return out
+
+
+def run_serve_dist(wg, args, host) -> dict:
+    """The serve_dist phase: the sharded service pools in one NCCL rank of
+    run_ranks, the weighted graph handed over by file. Returns the
+    launches of each part for the kernels line."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_dist_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(wg, path)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out = run_ranks(serve_dist_rank, 1, path, args.scale, host["digest"])
+    seconds = time.perf_counter() - t0
+    emit("serve_dist", entry="repro_torch.serving.AnalyticsService(mesh=)",
+         ranks=1, rank_seconds=seconds, **out,
+         host_replay=dict(wall_s=host["wall_s"], seconds=host["seconds"]),
+         replay_vs_host=out["replay"]["seconds"] / host["seconds"])
+    return {part: out[part]["launches"]
+            for part in ("replay", "compat", "bench", "live")}
+
+
+def run_examples(args) -> dict:
+    """The examples phase: the six graph-side examples on the card, through
+    their own main (distributed_bfs on one NCCL rank), their printed lines
+    kept out of the log; each one's launches (distributed_bfs's rank's
+    added), its seconds and what it returned. Returns the phase's
+    launches."""
+    from repro_torch.examples import (distributed_bfs, graph_analytics,
+                                      quickstart, serve_analytics,
+                                      sweep_trace, weighted_sssp)
+    out_dir = args.out or tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    runs = (("quickstart", quickstart, [], SERIAL_KERNELS + BATCHED_KERNELS),
+            ("weighted_sssp", weighted_sssp, [], SSSP_KERNELS
+             + BATCHED_KERNELS),
+            ("graph_analytics", graph_analytics, [], BATCHED_KERNELS),
+            ("serve_analytics", serve_analytics, [], SERVE_KERNELS),
+            ("sweep_trace", sweep_trace, ["--out-dir", out_dir],
+             SERVE_KERNELS),
+            ("distributed_bfs", distributed_bfs, ["--ndev", "1"],
+             SERIAL_KERNELS))
+    total = dict.fromkeys(KERNELS, 0)
+    rows = {}
+    for name, module, argv, kernels in runs:
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(common.LAUNCHES)
+        for k, v in res.pop("rank0_launches", {}).items():
+            launches[k] += v
+        for k, v in launches.items():
+            total[k] += v
+        for k in kernels:
+            check(launches[k] > 0, f"{k} was not launched by {name}")
+        lines = printed.getvalue().splitlines()
+        rows[name] = dict(seconds=seconds, launches=launches,
+                          printed_lines=len(lines), last_line=lines[-1],
+                          returned=res)
+    check(rows["distributed_bfs"]["returned"]["match"],
+          "distributed_bfs differs from the single-device BFS")
+    emit("examples", out_dir=out_dir, launches=total, **rows)
+    return total
 
 
 def digest(*arrays) -> str:
@@ -3458,9 +3726,11 @@ def main(argv=None) -> int:
     figure_tables(g, args, states)
     figure3(g, args)
     run_analytics(wg, args, sssp_points)
-    serve_launches = run_serve(wg, args)
+    serve_launches, serve_host = run_serve(wg, args)
     run_hillclimb(g, args)
     run_serve_bench(wg, args)
+    serve_dist_launches = run_serve_dist(wg, args, serve_host)
+    example_launches = run_examples(args)
     lane_state = sweep_layer_state(g, sample_roots(g, LANES, seed=SEED + 1))
     dist = run_dist(g, args, states, lane_state)
     grid = run_grid(wg, args, lane_state)
@@ -3495,6 +3765,12 @@ def main(argv=None) -> int:
                 per[key] = r[key]
         if name in SERVE_KERNELS:
             per["serve_launches"] = serve_launches[name]
+            # the sharded pools on one NCCL rank, part by part
+            per["serve_dist_launches"] = {
+                part: counts[name]
+                for part, counts in serve_dist_launches.items()}
+        if example_launches[name]:
+            per["examples_launches"] = example_launches[name]
         if name in BATCHED_KERNELS:
             # int64 words through the int32 view: the child's main-path
             # launches, its bit-equal cases, its times against the 32-bit

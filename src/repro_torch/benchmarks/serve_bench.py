@@ -25,9 +25,10 @@ and p50/p99 sojourn layers of both replays (lower is better).
   python -m repro_torch.benchmarks.serve_bench --scale 12
 
 (with ``src`` on ``PYTHONPATH``; ``--device cpu`` for the plain PyTorch
-path; ``--smoke`` is scale 10 with 32 queries). ``--ndev > 1`` needs the
-sharded service pools, not ported yet, and raises (ROADMAP queue A item 9
-(c)).
+path; ``--smoke`` is scale 10 with 32 queries). ``--ndev N`` (N > 1) runs
+both replays on sharded services over N ranks (``distributed.ranks
+.run_ranks``: one GPU a rank, or gloo ranks with ``--device cpu``); rank 0
+is the services' front door and runs the in-bench asserts.
 """
 from __future__ import annotations
 
@@ -42,14 +43,18 @@ SMOKE_MIX = "bfs:3,khop:3,reach:2,closeness:1,sssp:2"
 
 
 def _replay(g, trace, *, streaming: bool, lanes: int, slots: int,
-            sssp_slots: int, ndev: int):
+            sssp_slots: int, ndev: int, mesh):
+    """(service, stats) of one replay; on the ranks > 0 of a sharded
+    service the stats are None (the rank followed rank 0)."""
     from repro_torch.serving import AnalyticsService, ServiceConfig
     svc = AnalyticsService(g, ServiceConfig(
         lanes=lanes, slots=slots, sssp_slots=sssp_slots, ndev=ndev,
-        streaming=streaming))
-    svc.warmup(tropical=True)
-    stats = svc.replay(trace)
-    return svc, stats
+        mesh=mesh, streaming=streaming))
+
+    def drive(svc):
+        svc.warmup(tropical=True)
+        return svc.replay(trace)
+    return svc, svc.lead(drive)
 
 
 def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
@@ -57,16 +62,14 @@ def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
                  khop_k: int = 2, closeness_sources: int = 8,
                  lanes: int = 0, slots: int = 256, sssp_slots: int = 64,
                  burst: int = 4, every: int = 2, ndev: int = 1,
-                 device=None, graph=None) -> dict[str, float]:
+                 device=None, graph=None, mesh=None) -> dict[str, float]:
     """Streamed-vs-flush replay of one mixed trace; see module doc.
     ``graph`` is the weighted R-MAT graph of ``scale``, ``edgefactor`` and
     ``seed`` when the caller has built it already (it brings its own
-    device); by default it is built on ``device``."""
-    if ndev > 1:
-        raise NotImplementedError(
-            "ndev > 1 needs the sharded service pools (_PackedPool and "
-            "_TropicalPool over the distributed engines), which are not "
-            "ported yet (ROADMAP queue A item 9 (c))")
+    device); by default it is built on ``device``. With ``ndev > 1`` (or
+    a 1-D ``mesh``, even of one rank) the services are sharded and every
+    rank of the mesh calls it (``run_ranks``): rank 0 returns the points,
+    the other ranks None."""
     from repro_torch.graph.generator import rmat_weighted_graph
     from repro_torch.serving.trace import synthetic_trace
 
@@ -79,10 +82,13 @@ def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
             g.n, queries, mix=mix, seed=seed, khop_k=khop_k,
             closeness_sources=closeness_sources, burst=burst, every=every)
 
-    kw = dict(lanes=lanes, slots=slots, sssp_slots=sssp_slots, ndev=ndev)
+    kw = dict(lanes=lanes, slots=slots, sssp_slots=sssp_slots, ndev=ndev,
+              mesh=mesh)
     t_on, t_off = trace(), trace()
     svc_on, s_on = _replay(g, t_on, streaming=True, **kw)
     svc_off, s_off = _replay(g, t_off, streaming=False, **kw)
+    if s_on is None:
+        return None                       # a follower of the front door
 
     gains = []
     for env_on, env_off in zip(t_on, t_off):
@@ -126,6 +132,39 @@ def bench_points(scale: int, edgefactor: int = 16, seed: int = 0,
     }
 
 
+def bench_rank(graph_path, scale, edgefactor, seed, kw, device):
+    """One rank of ``--ndev N``: ``bench_points`` on the graph from
+    ``graph_path``, on this rank's device."""
+    from repro_torch.distributed.ranks import load_graph, rank_device
+    return bench_points(scale, edgefactor, seed, device=device,
+                        graph=load_graph(graph_path, rank_device(device)),
+                        **kw)
+
+
+def _bench_ranks(scale, edgefactor, seed, kw, device):
+    """The graph built once here, saved, and benched by ``kw['ndev']``
+    ranks. Returns rank 0's points."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed.ranks import run_ranks, save_graph
+    from repro_torch.graph.generator import rmat_weighted_graph
+    g = rmat_weighted_graph(scale, edgefactor, seed,
+                            device=resolve_device(device))
+    on_cpu = g.device.type == "cpu"
+    with tempfile.TemporaryDirectory(prefix="serve_bench_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(g, path)
+        del g
+        if not on_cpu:
+            torch.cuda.empty_cache()    # the ranks need the card's memory
+        rank_dev = "cpu" if on_cpu else None
+        return run_ranks(bench_rank, kw["ndev"], path, scale, edgefactor,
+                         seed, kw, rank_dev, device=rank_dev)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=12)
@@ -145,10 +184,14 @@ def main(argv=None):
 
     scale = 10 if args.smoke else args.scale
     queries = 32 if args.smoke else args.queries
-    points = bench_points(scale, args.edgefactor, args.seed,
-                          queries=queries, mix=args.mix, lanes=args.lanes,
-                          slots=args.slots, ndev=args.ndev,
-                          device=args.device)
+    kw = dict(queries=queries, mix=args.mix, lanes=args.lanes,
+              slots=args.slots, ndev=args.ndev)
+    if args.ndev > 1:
+        points = _bench_ranks(scale, args.edgefactor, args.seed, kw,
+                              args.device)
+    else:
+        points = bench_points(scale, args.edgefactor, args.seed,
+                              device=args.device, **kw)
     for name, v in points.items():
         if "teps" in name:
             print(f"{name:44s} {v / 1e6:10.2f} MTEPS")

@@ -101,10 +101,11 @@ def _rank_main(rank, ndev, backend, store_path, result_path, fn, args):
         status = 0
     except BaseException:
         with open(f"{result_path}.{rank}", "wb") as f:
-            pickle.dump(("error", traceback.format_exc()), f)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+            pickle.dump(("error", traceback.format_exc(), time.time()), f)
+    # a failed rank exits at once: other ranks may be waiting in a
+    # collective with it, and tearing the group down could wait on them
+    if status == 0 and dist.is_initialized():
+        dist.destroy_process_group()
     os._exit(status)
 
 
@@ -113,8 +114,9 @@ def run_ranks(fn, ndev: int, *args, device=None):
 
     ``device=None`` (or "cuda") puts rank ``r`` on ``cuda:r`` with NCCL and
     needs ``ndev <= torch.cuda.device_count()``; ``device="cpu"`` runs gloo
-    ranks on the CPU. Raises with the first failing rank's traceback, or
-    when the ranks outlive ``_TIMEOUT_S`` seconds (they are killed then)."""
+    ranks on the CPU. Raises with the traceback of the rank that raised
+    first, or when the ranks outlive ``_TIMEOUT_S`` seconds (they are
+    killed then)."""
     if ndev < 1:
         raise ValueError(f"ndev must be >= 1, got {ndev}")
     backend = _backend(device)
@@ -158,9 +160,18 @@ def run_ranks(fn, ndev: int, *args, device=None):
                 f"run_ranks: {ndev} ranks of {getattr(fn, '__name__', fn)} "
                 f"did not finish within {_TIMEOUT_S} s")
         if failed is not None:
+            # the rank that raised first: a rank whose peer died may raise
+            # in its collective a moment later, and report that instead
+            errors = sorted((t, r, text) for r in range(ndev)
+                            for t, text in [_error(result_path, r)]
+                            if text is not None)
+            if errors:
+                _, failed, text = errors[0]
+            else:
+                text = "(the rank left no traceback)"
             raise RuntimeError(
                 f"run_ranks: rank {failed} of {ndev} failed (exit code "
-                f"{procs[failed].exitcode}):\n{_report(result_path, failed)}")
+                f"{procs[failed].exitcode}):\n{text}")
         return _load(result_path, 0)[1]
 
 
@@ -169,9 +180,12 @@ def _load(result_path: str, rank: int):
         return pickle.load(f)
 
 
-def _report(result_path: str, rank: int) -> str:
+def _error(result_path: str, rank: int) -> tuple:
+    """(time, traceback) of a rank that raised, else (inf, None)."""
     try:
-        status, text = _load(result_path, rank)
+        report = _load(result_path, rank)
     except (OSError, EOFError, pickle.UnpicklingError):
-        return "(the rank left no traceback)"
-    return text if status == "error" else "(the rank reported no error)"
+        return float("inf"), None
+    if report[0] != "error":
+        return float("inf"), None
+    return report[2], report[1]

@@ -21,13 +21,19 @@ retired back to the pool. This module provides:
 
   PYTHONPATH=src python -m repro_torch.launch.serve_bfs --scale 12 \
       --lanes 32 --queries 64 --mix bfs:4,khop:2,reach:1,closeness:1,sssp:2 \
-      --burst 4 --every 2 [--validate] [--delta 0.05] [--slots 256] \
-      [--tenants 2] [--tenant-quota 16] [--no-streaming] [--device cpu]
+      --burst 4 --every 2 [--validate] [--ndev 4] [--delta 0.05] \
+      [--slots 256] [--tenants 2] [--tenant-quota 16] [--no-streaming] \
+      [--device cpu]
 
 ``--device`` is the torch device of the graph and the engines: the GPU
 unless given (it raises without one); ``--device cpu`` takes the kernels'
-plain PyTorch versions. ``--ndev > 1`` raises until the sharded service
-pools are ported (ROADMAP queue A item 9 (c)).
+plain PyTorch versions. ``--ndev N`` (N > 1) shards both lane pools over
+N ranks: the graph is built once, handed to the ranks by file, and
+``distributed.ranks.run_ranks`` starts one process a rank (NCCL, one GPU
+a rank: N must not exceed the card count; gloo ranks with ``--device
+cpu``). Rank 0 is the service's front door: it replays the trace (or runs
+the live path, with the HTTP plane, flight log, doctor and trace files on
+rank 0 only) while the other ranks follow (``AnalyticsService.follow``).
 
 ``--listen PORT`` switches to the LIVE path: the service runs its worker
 thread, an ``ObservabilityServer`` exposes /metrics, /healthz, /readyz,
@@ -195,7 +201,7 @@ def _answers_summary(requests: list[Request]) -> dict:
 def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
           mode: str = "hybrid", probe_impl: str = "xla",
           validate: bool = False, ndev: int = 1,
-          delta: float | None = None) -> dict:
+          delta: float | None = None, mesh=None) -> dict | None:
     """Feed tagged ``requests`` to the engines ``burst`` requests at a
     time every ``every`` layers; run until all are answered. Returns
     serving statistics with per-query-type sojourn breakdowns.
@@ -204,8 +210,12 @@ def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
     epoch sized to the exact lane demand, streaming OFF (every answer at
     lane flush — the validator needs complete depth columns and BFS-tree
     parents), ``lanes=0`` adaptive pool sizing, ``delta=None`` the
-    weighted default. ``ndev > 1`` raises until the sharded service
-    pools are ported (ROADMAP queue A item 9 (c))."""
+    weighted default, ``ndev > 1`` (or a 1-D ``mesh``, even of one rank)
+    sharding both pools. A sharded ``serve`` is called by every rank of
+    the mesh: rank 0 returns the stats, the other ranks follow the
+    service and return None. The BFS trees are validated on the host, a
+    few lanes at a time in threads (numpy's passes over the m edge slots
+    release the GIL)."""
     wg = g if isinstance(g, WeightedCSRGraph) else None
     num_req = len(requests)
     if num_req < 1:
@@ -235,7 +245,16 @@ def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
         sssp_lanes=max(1, min(lanes, max(sssp_cap, 1), DEFAULT_LANES)),
         sssp_slots=max(sssp_cap, 1),
         max_pending=num_req + 1, mode=mode, probe_impl=probe_impl,
-        ndev=ndev, delta=delta, streaming=False))
+        ndev=ndev, delta=delta, streaming=False, mesh=mesh))
+    return svc.lead(lambda svc: _serve_compat(svc, requests, lanes, burst,
+                                              every, validate, bool_cap,
+                                              sssp_cap))
+
+
+def _serve_compat(svc, requests, lanes, burst, every, validate, bool_cap,
+                  sssp_cap) -> dict:
+    """``serve``'s front-door half: replay, answers, validation, stats."""
+    num_req = len(requests)
     svc.warmup(packed=bool_cap > 0, tropical=sssp_cap > 0)
 
     pairs = [(req, _to_envelope(req, (i // burst) * every))
@@ -248,22 +267,26 @@ def serve(g, requests: list[Request], lanes: int, burst: int, every: int,
         req.answer = _compat_answer(req, rec.answer.result)
 
     if validate and bool_cap:
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
         from repro_torch.core.csr import to_numpy_adj
         from repro_torch.graph.validate import validate_bfs_tree
         out = svc.packed_result(derive_parents=True)
         rp, ci = to_numpy_adj(svc.engine.g)
         parent = out.parent.cpu().numpy()
-        for req in requests:
-            if req.qtype == "sssp":   # tropical lanes carry no BFS tree
-                continue
-            for j, r in enumerate(req.roots):  # every boolean lane is a
-                validate_bfs_tree(                 # BFS tree, whatever the tag
-                    rp, ci, parent[:, req.slots][:, j], int(r))
+        # every boolean lane is a BFS tree, whatever the tag; tropical
+        # lanes carry none
+        trees = [(req.slots.start + j, int(r)) for req in requests
+                 if req.qtype != "sssp" for j, r in enumerate(req.roots)]
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            list(pool.map(lambda tree: validate_bfs_tree(
+                rp, ci, parent[:, tree[0]], tree[1]), trees))
 
     s = svc.stats()
     stats = dict(
         requests=num_req, total_lanes=bool_cap + sssp_cap,
-        lanes=int(lanes), ndev=ndev, layers=s["layers"],
+        lanes=int(lanes), ndev=svc.ndev, layers=s["layers"],
         wall_s=s["wall_s"], sojourn_layers=s["sojourn_layers"],
         per_type=s["per_type"],
         answers=_answers_summary(requests),
@@ -285,8 +308,8 @@ def main(argv=None):
                     help="bit-lane pool size; 0 = adaptive from queue "
                          "depth + degree stats")
     ap.add_argument("--ndev", type=int, default=1,
-                    help="shard the engine over this many devices (only 1 "
-                         "until the sharded pools are ported)")
+                    help="shard the engine over this many ranks (one GPU a "
+                         "rank; gloo ranks with --device cpu)")
     ap.add_argument("--queries", type=int, default=64,
                     help="number of requests (a closeness request costs "
                          "--closeness-sources lanes)")
@@ -355,11 +378,6 @@ def main(argv=None):
                     help="torch device; default: the GPU (raises without "
                          "one)")
     args = ap.parse_args(argv)
-    if args.ndev > 1:
-        raise NotImplementedError(
-            "--ndev > 1 needs the sharded service pools (_PackedPool and "
-            "_TropicalPool over the distributed engines), which are not "
-            "ported yet (ROADMAP queue A item 9 (c))")
     if args.validate and (args.metrics_out or args.trace_out
                           or args.listen is not None or args.flight_out
                           or args.doctor_out):
@@ -369,17 +387,61 @@ def main(argv=None):
 
     # weights always ride along: the CSR is bit-identical to rmat_graph's,
     # boolean-only mixes simply never read them
+    if args.ndev > 1:
+        return _serve_ranks(args)
     g = rmat_weighted_graph(args.scale, args.edgefactor, args.seed,
                             device=args.device)
+    return _serve_graph(g, args)
+
+
+def _serve_ranks(args) -> dict | None:
+    """``--ndev N``: the graph built once here, saved, and served by N
+    ranks (``serve_rank``). Returns rank 0's stats."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed.ranks import run_ranks, save_graph
+    g = rmat_weighted_graph(args.scale, args.edgefactor, args.seed,
+                            device=args.device)
+    on_cpu = g.device.type == "cpu"
+    with tempfile.TemporaryDirectory(prefix="serve_bfs_") as tmp:
+        path = os.path.join(tmp, "graph.npz")
+        save_graph(g, path)
+        del g
+        if not on_cpu:
+            torch.cuda.empty_cache()    # the ranks need the card's memory
+        return run_ranks(serve_rank, args.ndev, path, args,
+                         device="cpu" if on_cpu else None)
+
+
+def serve_rank(graph_path, args) -> dict | None:
+    """One rank of ``--ndev N``: the graph from ``graph_path`` on this
+    rank's device, then the CLI's path on the sharded service (rank 0 the
+    front door, the others following). Returns rank 0's stats."""
+    from repro_torch.distributed.ranks import load_graph, rank_device
+    return _serve_graph(load_graph(graph_path, rank_device(args.device)),
+                        args)
+
+
+def _serve_graph(g, args) -> dict | None:
+    """The CLI's path on a built graph: the compat surface with
+    ``--validate``, else the replay or the live path. Only the front door
+    (rank 0 of a sharded service) records, writes files and prints."""
+    front = args.ndev <= 1
+    if not front:
+        import torch.distributed as dist
+        front = dist.get_rank() == 0
     telemetry = None
     record = bool(args.trace_out or args.flight_out or args.doctor_out
                   or args.listen is not None)
-    if record or args.metrics_out:
+    if front and (record or args.metrics_out):
         from repro_torch.obs import Telemetry
         telemetry = Telemetry(record_sweeps=record,
                               flight_path=args.flight_out)
     slo = None
-    if (args.slo_p99 is not None or args.slo_queue_depth is not None
+    if front and (args.slo_p99 is not None or args.slo_queue_depth is not None
             or args.slo_reject_rate is not None):
         from repro_torch.obs import SLOConfig
         slo = SLOConfig(p99_sojourn_layers=args.slo_p99,
@@ -392,8 +454,9 @@ def main(argv=None):
         stats = serve(g, requests, args.lanes, args.burst, args.every,
                       mode=args.mode, probe_impl=args.probe_impl,
                       validate=True, ndev=args.ndev, delta=args.delta)
-        print(json.dumps(stats, indent=2))
-        return
+        if front:
+            print(json.dumps(stats, indent=2))
+        return stats
     weights = parse_mix(args.mix)
     trace = synthetic_trace(
         g.n, args.queries, mix=args.mix, seed=args.seed,
@@ -406,13 +469,17 @@ def main(argv=None):
         mode=args.mode, probe_impl=args.probe_impl, ndev=args.ndev,
         delta=args.delta, streaming=not args.no_streaming,
         telemetry=telemetry, slo=slo))
-    svc.warmup(tropical="sssp" in weights)
-    if args.listen is not None:
-        stats = _serve_live(svc, trace, args)
-    else:
+
+    def drive(svc):
+        svc.warmup(tropical="sssp" in weights)
+        if args.listen is not None:
+            return _serve_live(svc, trace, args)
         stats = svc.replay(trace)
         _write_outputs(svc, telemetry, args, stats)
         print(json.dumps(stats, indent=2))
+        return stats
+
+    stats = svc.lead(drive)
     if telemetry is not None:
         telemetry.close()
     return stats
@@ -472,6 +539,10 @@ def _serve_live(svc, trace, args) -> dict:
         try:
             while time.monotonic() < deadline:
                 time.sleep(0.2)
+                health = svc.health()
+                if "error" in health:
+                    raise RuntimeError(
+                        f"service worker failed: {health['error']}")
         except KeyboardInterrupt:
             pass
     svc.stop()

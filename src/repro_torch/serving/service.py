@@ -38,21 +38,28 @@ width don't ride the shared pools at all: they execute inline through
 as ``run_query``, so every answer the service produces is parity-checked
 against the offline path by construction.
 
-In the port the pools are the host engines on the graph's device. The
-reference's sharded pools (``ndev > 1``) are not ported yet and raise:
-they need one front door over the SPMD ranks (ROADMAP queue A item 9
-(c)). A service built on a CUDA graph
-runs the CUDA kernels through the engines, or raises; nothing falls back
-to the plain versions on the card.
+In the port the pools are the host engines on the graph's device, or,
+when the service's ``LaneEngine`` is partitioned (``ndev > 1``, or an
+explicit ``mesh`` even of one rank), the 1-D sharded engines
+(``core.dist_msbfs``, ``core.dist_sssp``) on that mesh. The service is
+1-D only, as the reference's is: ``grid=`` is not one of its options. A
+sharded service is an SPMD program: every rank of the mesh builds it, rank
+0 of the mesh is the only front door, and the other ranks run
+``follow()`` (``serving.frontdoor``; ``lead(drive)`` runs ``drive`` on
+rank 0 and ``follow`` elsewhere). A service built on a CUDA graph runs the CUDA
+kernels through the engines, or raises; nothing falls back to the plain
+versions on the card.
 The per-layer read-out copies the live depth columns and the flushed
 columns to the host (``msbfs_engine_readout``), as the reference's
-``LayerReadout`` does.
+``LayerReadout`` does; on a sharded service every rank gathers the
+global rows and copies them.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
+import traceback
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -71,6 +78,7 @@ from repro_torch.analytics.meta import QueryMeta
 from repro_torch.analytics.weighted import (SSSPDistancesResult,
                                             _resolve_delta)
 from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT
+from repro_torch.serving import frontdoor as fd
 from repro_torch.serving.admission import (AdmissionController, DONE,
                                            QUEUED, REJECTED, RUNNING)
 from repro_torch.serving.stats import summarize
@@ -97,7 +105,10 @@ class ServiceConfig:
     registry still serves the request/sojourn metrics). ``slo`` is an
     optional ``repro_torch.obs.slo.SLOConfig`` — the service then runs an
     ``SLOMonitor`` fed per admission/answer/tick, and its health feeds
-    ``health()['ready']`` (the /readyz bit)."""
+    ``health()['ready']`` (the /readyz bit).
+
+    ``ndev > 1`` shards both pools over ``host_mesh(ndev)``; ``mesh`` (a
+    1-D ``DeviceMesh``) shards them over that mesh, even of one rank."""
     lanes: int = 0               # packed pool width; 0 = adaptive
     slots: int = 256             # packed queue slots per epoch
     sssp_lanes: int = 0          # tropical pool width; 0 = engine default
@@ -114,6 +125,7 @@ class ServiceConfig:
     streaming: bool = True
     telemetry: object = None     # repro_torch.obs.Telemetry (optional)
     slo: object = None           # repro_torch.obs.slo.SLOConfig (optional)
+    mesh: object = None          # a 1-D DeviceMesh (optional)
 
     def __post_init__(self):
         if self.slots < 1 or self.sssp_slots < 1:
@@ -161,11 +173,11 @@ class RequestRecord:
 
 class _PackedPool:
     """The packed MS-BFS engine behind one bounded queue of ``slots``
-    root slots per epoch, on the graph's device."""
+    root slots per epoch (on the graph's device, or 1-D sharded, chosen by
+    the engine's partition)."""
 
     def __init__(self, svc: "AnalyticsService"):
         cfg, eng = svc.config, svc.engine
-        from repro_torch.core import msbfs as ms
         from repro_torch.core.packed import adaptive_lane_pool
         self.slots = cfg.slots
         self.lanes = cfg.lanes or adaptive_lane_pool(cfg.slots, eng.n,
@@ -176,18 +188,35 @@ class _PackedPool:
         self._edges_done = 0
         self._kind = "bfs"
         self.recorder = None     # live epoch's SweepRecorder (or None)
-        self._new_recorder = svc._sweep_recorder_factory("msbfs")
-        g = eng.g
-        self._init = lambda: ms.msbfs_engine_init(
-            g, capacity=cfg.slots, lanes=self.lanes)
-        self._enqueue = ms.msbfs_engine_enqueue
-        self._step = lambda s: ms.msbfs_engine_step(
-            g, s, cfg.mode, cfg.alpha, cfg.beta, cfg.max_pos)
-        self._idle = ms.msbfs_engine_idle
-        self._readout = ms.msbfs_engine_readout
-        self._retire = lambda s, m: ms.msbfs_engine_retire(g, s, m)
-        self._result = lambda s, p: ms.msbfs_engine_result(
-            g, s, derive_parents=p)
+        self._new_recorder = svc._sweep_recorder_factory(
+            "dist_msbfs" if eng.dg is not None else "msbfs")
+        if eng.dg is not None:
+            from repro_torch.core import dist_msbfs as dm
+            dg, mesh = eng.dg, eng.mesh
+            self._init = lambda: dm.dist_msbfs_engine_init(
+                dg, mesh, cfg.slots, self.lanes)
+            self._enqueue = dm.dist_msbfs_engine_enqueue
+            self._step = lambda s: dm.dist_msbfs_engine_step(
+                dg, s, mesh, cfg.mode, cfg.alpha, cfg.beta, cfg.max_pos)
+            self._idle = dm.dist_msbfs_engine_idle
+            self._readout = lambda s: dm.dist_msbfs_engine_readout(dg, s)
+            self._retire = lambda s, m: dm.dist_msbfs_engine_retire(
+                dg, s, m)
+            self._result = lambda s, p: dm.dist_msbfs_engine_result(
+                dg, s, mesh, derive_parents=p)
+        else:
+            from repro_torch.core import msbfs as ms
+            g = eng.g
+            self._init = lambda: ms.msbfs_engine_init(
+                g, capacity=cfg.slots, lanes=self.lanes)
+            self._enqueue = ms.msbfs_engine_enqueue
+            self._step = lambda s: ms.msbfs_engine_step(
+                g, s, cfg.mode, cfg.alpha, cfg.beta, cfg.max_pos)
+            self._idle = ms.msbfs_engine_idle
+            self._readout = ms.msbfs_engine_readout
+            self._retire = lambda s, m: ms.msbfs_engine_retire(g, s, m)
+            self._result = lambda s, p: ms.msbfs_engine_result(
+                g, s, derive_parents=p)
 
     def fits(self, k: int) -> bool:
         return self.slot_hi + k <= self.slots
@@ -270,15 +299,27 @@ class _TropicalPool:
         self._steps_done = 0
         self._kind = "sssp"
         self.recorder = None
-        self._new_recorder = svc._sweep_recorder_factory("sssp")
-        wg = eng.wg
-        self._trim = eng.n
-        self._init = lambda: ts.sssp_engine_init(
-            wg, cfg.sssp_slots, self.lanes)
-        self._enqueue = ts.sssp_engine_enqueue
-        self._step = lambda s: ts.sssp_engine_step(
-            wg, s, self.delta, cfg.max_pos, cfg.probe_impl)
-        self._idle = ts.sssp_engine_idle
+        self._new_recorder = svc._sweep_recorder_factory(
+            "dist_sssp" if eng.dwg is not None else "sssp")
+        if eng.dwg is not None:
+            from repro_torch.core import dist_sssp as ds
+            dwg, mesh = eng.dwg, eng.mesh
+            self._trim = dwg.n_orig
+            self._init = lambda: ds.dist_sssp_engine_init(
+                dwg, mesh, cfg.sssp_slots, self.lanes)
+            self._enqueue = ds.dist_sssp_engine_enqueue
+            self._step = lambda s: ds.dist_sssp_engine_step(
+                dwg, s, mesh, self.delta, cfg.max_pos, cfg.probe_impl)
+            self._idle = ds.dist_sssp_engine_idle
+        else:
+            wg = eng.wg
+            self._trim = eng.n
+            self._init = lambda: ts.sssp_engine_init(
+                wg, cfg.sssp_slots, self.lanes)
+            self._enqueue = ts.sssp_engine_enqueue
+            self._step = lambda s: ts.sssp_engine_step(
+                wg, s, self.delta, cfg.max_pos, cfg.probe_impl)
+            self._idle = ts.sssp_engine_idle
 
     def fits(self, k: int) -> bool:
         return self.slot_hi + k <= self.slots
@@ -310,7 +351,8 @@ class _TropicalPool:
 
     def out_dist_cols(self, sl: slice) -> np.ndarray:
         """The answered slots' distance columns: sliced on the device,
-        then copied to the host."""
+        then copied to the host (replicated on a sharded engine: no
+        collective)."""
         return self.state.out_dist[:self._trim, sl].cpu().numpy()
 
     def _steps_now(self) -> int:
@@ -340,17 +382,17 @@ class AnalyticsService:
     """Async analytics server over one graph (see module docstring)."""
 
     def __init__(self, g, config: ServiceConfig | None = None, **overrides):
+        if "grid" in overrides:
+            raise ValueError(
+                "the service's pools are 1-D only, as the reference's are: "
+                "pass ndev= or a 1-D mesh=, not grid= (the 2-D engines "
+                "serve offline queries through LaneEngine(grid=))")
         if config is None:
             config = ServiceConfig(**overrides)
         elif overrides:
             raise ValueError(
                 f"pass a ServiceConfig OR overrides, not both — got "
                 f"config plus {sorted(overrides)}")
-        if config.ndev > 1:
-            raise NotImplementedError(
-                "ndev > 1 needs the sharded service pools (_PackedPool and "
-                "_TropicalPool over the distributed engines), which are not "
-                "ported yet (ROADMAP queue A item 9 (c))")
         self.config = config
         self.telemetry = config.telemetry
         # metrics always work (metrics_text() on a bare service exposes
@@ -362,10 +404,23 @@ class AnalyticsService:
             from repro_torch.obs.metrics import MetricsRegistry
             self._registry = MetricsRegistry()
         self.engine = LaneEngine(
-            g, ndev=config.ndev, lanes=(config.lanes or None),
+            g, ndev=config.ndev, mesh=config.mesh,
+            lanes=(config.lanes or None),
             mode=config.mode, alpha=config.alpha, beta=config.beta,
             max_pos=config.max_pos, probe_impl=config.probe_impl,
             telemetry=self.telemetry)   # inline batch sweeps record too
+        # the partition the answers' metadata and the stats record
+        self.ndev = self.engine.ndev
+        # a sharded service's op channel from the mesh's first rank (the
+        # front door) to the others; None on one device
+        self._channel: fd.OpChannel | None = None
+        if self.engine.dg is not None:
+            import torch.distributed as dist
+            members = self.engine.mesh.mesh.flatten().tolist()
+            self._channel = fd.OpChannel(members,
+                                         members.index(dist.get_rank()))
+        self._outbox: list[RequestRecord] = []   # admitted since last op
+        self._last_op = time.monotonic()
         # the service-wide tropical bucket width, resolved ONCE (the pool
         # runs every lane at it)
         self.delta = (_resolve_delta(self.engine, config.delta)
@@ -401,8 +456,8 @@ class AnalyticsService:
         never touch ``repro_torch.obs.sweeplog``)."""
         if self.telemetry is None:
             return lambda: None
-        tel, cfg = self.telemetry, self.config
-        return lambda: tel.recorder(engine_name, ndev=cfg.ndev,
+        tel = self.telemetry
+        return lambda: tel.recorder(engine_name, ndev=self.ndev,
                                     source="service")
 
     def metrics_text(self) -> str:
@@ -501,6 +556,10 @@ class AnalyticsService:
         Returns its live ``RequestRecord`` — status is ``QUEUED`` or
         ``REJECTED`` (with ``reason``) immediately; invalid requests
         raise instead of entering the lifecycle."""
+        if not self.front_door:
+            raise RuntimeError(
+                "a sharded service's front door is rank 0 of its mesh: "
+                "submit there, and run follow() on this rank")
         if not isinstance(request, AnalyticsRequest):
             request = AnalyticsRequest(query=request)
         with self._cv:
@@ -509,18 +568,25 @@ class AnalyticsService:
             rec = RequestRecord(request=request,
                                 submit_layer=self._layer)
             self._plan(rec)
-            ok, reason = self._admission.admit(request.tenant)
-            if not ok:
-                rec.status = REJECTED
-                rec.reason = reason
-            else:
-                self._pending.append(rec)
-            self._count_request(rec.kind, rec.status)
-            if self.slo is not None:
-                self.slo.observe_admission(ok)
-            self._records[request.id] = rec
+            self._admit(rec)
+            if self._channel is not None:
+                self._outbox.append(rec)
             self._cv.notify_all()
             return rec
+
+    def _admit(self, rec: RequestRecord) -> None:
+        """Admission and bookkeeping of a planned record (under the
+        lock)."""
+        ok, reason = self._admission.admit(rec.request.tenant)
+        if not ok:
+            rec.status = REJECTED
+            rec.reason = reason
+        else:
+            self._pending.append(rec)
+        self._count_request(rec.kind, rec.status)
+        if self.slo is not None:
+            self.slo.observe_admission(ok)
+        self._records[rec.request.id] = rec
 
     def poll(self, request_id: str) -> str:
         """Lifecycle status of a request id."""
@@ -576,31 +642,39 @@ class AnalyticsService:
         collect answers. Returns True while there is work in flight."""
         with self._cv:
             t0 = time.perf_counter()
-            self._layer += 1
-            self._dispatch()
-            if self._packed is not None:
-                self._packed.step()
-            if self._tropical is not None:
-                self._tropical.step()
-            self._collect_packed()
-            self._collect_tropical()
-            occ = 0
-            if self._packed is not None:
-                occ += self._packed.active_lanes()
-            if self._tropical is not None:
-                occ += self._tropical.active_lanes()
-            self._occupancy.append(occ)
-            self._registry.counter(
-                "service_layers_total", "scheduler ticks").inc()
-            self._registry.gauge(
-                "service_occupancy_lanes",
-                "active engine lanes after the tick").set(occ)
-            if self.slo is not None:
-                self.slo.observe_queue_depth(self._admission.pending)
-                self.slo.evaluate()
-            self._wall += time.perf_counter() - t0
-            self._cv.notify_all()
-            return self._busy_locked()
+            self._send(fd.STEP)
+            return self._tick(t0)
+
+    def _tick(self, t0: float) -> bool:
+        """The tick's body (under the lock). On a sharded service every
+        rank runs it on the same records, so the engines' collectives (the
+        steps, the read-out's gathers, the inline batch sweeps) line up.
+        ``t0`` starts the tick's wall time."""
+        self._layer += 1
+        self._dispatch()
+        if self._packed is not None:
+            self._packed.step()
+        if self._tropical is not None:
+            self._tropical.step()
+        self._collect_packed()
+        self._collect_tropical()
+        occ = 0
+        if self._packed is not None:
+            occ += self._packed.active_lanes()
+        if self._tropical is not None:
+            occ += self._tropical.active_lanes()
+        self._occupancy.append(occ)
+        self._registry.counter(
+            "service_layers_total", "scheduler ticks").inc()
+        self._registry.gauge(
+            "service_occupancy_lanes",
+            "active engine lanes after the tick").set(occ)
+        if self.slo is not None:
+            self.slo.observe_queue_depth(self._admission.pending)
+            self.slo.evaluate()
+        self._wall += time.perf_counter() - t0
+        self._cv.notify_all()
+        return self._busy_locked()
 
     def _dispatch(self) -> None:
         still: deque[RequestRecord] = deque()
@@ -709,7 +783,7 @@ class AnalyticsService:
             early = bool(live)
             meta = QueryMeta(
                 kind=kind, layers=layers, lanes=rec.lanes_used,
-                ndev=self.config.ndev,
+                ndev=self.ndev,
                 extra=(dict(depth_partial=early) if early else {}))
             if kind == "khop":
                 res = khop_result_from_depth(rec.roots, rec.k, depth,
@@ -727,7 +801,7 @@ class AnalyticsService:
         depth = ro.out_depth[:, sl].copy()
         num_layers = ro.out_layers[sl].astype(np.int64)
         meta = QueryMeta(kind=kind, layers=int(num_layers.max()),
-                         lanes=rec.lanes_used, ndev=self.config.ndev)
+                         lanes=rec.lanes_used, ndev=self.ndev)
         if kind == "bfs":
             res = BFSResult(
                 sources=rec.roots, depth=depth, num_layers=num_layers,
@@ -747,7 +821,7 @@ class AnalyticsService:
                 meta=QueryMeta(kind="closeness",
                                layers=int(num_layers.max()),
                                lanes=rec.lanes_used,
-                               ndev=self.config.ndev,
+                               ndev=self.ndev,
                                extra=dict(chunk=int(rec.roots.size))))
         return AnalyticsAnswer(rec.request.id, res, res.meta), False, []
 
@@ -773,7 +847,7 @@ class AnalyticsService:
                 meta=QueryMeta(kind="sssp", layers=int(steps.max()),
                                truncated=bool(trunc.any()),
                                lanes=rec.lanes_used,
-                               ndev=self.config.ndev,
+                               ndev=self.ndev,
                                extra=dict(grid=None, compress=False,
                                           delta=delta)))
             self._finish(rec, AnalyticsAnswer(rec.request.id, res,
@@ -788,7 +862,10 @@ class AnalyticsService:
         recycled epoch's outputs are gone."""
         if self._packed is None:
             raise RuntimeError("service has served no packed requests")
-        return self._packed.result(derive_parents)
+        with self._cv:
+            if self._packed.state is not None:
+                self._send(fd.PACKED_RESULT, derive_parents)
+            return self._packed.result(derive_parents)
 
     # -- drivers ------------------------------------------------------------
 
@@ -798,11 +875,16 @@ class AnalyticsService:
         device and wait for it, so the serving window measures traversal,
         not one-time set-up: on the card the first step builds the CUDA
         kernels (nvcc) and warms the allocator."""
+        if tropical is None:
+            tropical = self.engine.weighted
+        with self._cv:
+            self._send(fd.WARMUP, packed, tropical)
+            self._warmup(packed, tropical)
+
+    def _warmup(self, packed: bool, tropical: bool) -> None:
         if packed:
             pool = self._pool("packed")
             pool._step(pool._enqueue(pool._init(), np.zeros(1, np.int32)))
-        if tropical is None:
-            tropical = self.engine.weighted
         if tropical:
             pool = self._pool("tropical")
             pool._step(pool._enqueue(pool._init(), np.zeros(1, np.int32)))
@@ -844,7 +926,7 @@ class AnalyticsService:
                 wall_s=self._wall,
                 edges=packed.edges() if packed else 0,
                 lanes=packed.lanes if packed else (self.config.lanes or 0),
-                ndev=self.config.ndev, occupancy=self._occupancy,
+                ndev=self.ndev, occupancy=self._occupancy,
                 sssp_steps=(self._tropical.steps()
                             if self._tropical else 0),
                 delta=(None if self._tropical is None else
@@ -907,16 +989,23 @@ class AnalyticsService:
                 with self._cv:
                     while not self._stopping and not self._busy_locked():
                         self._cv.wait(0.05)
+                        if (self._channel is not None and not self._stopping
+                                and time.monotonic() - self._last_op
+                                >= fd.HEARTBEAT_S):
+                            self._send(fd.HEARTBEAT)
                     if self._stopping:
                         return
                 try:
                     self.step()
                 except BaseException as e:
                     # the worker dies with its exception: health() and
-                    # result() report it, the thread's excepthook prints it
+                    # result() report it, the thread's excepthook prints
+                    # it, a sharded service's followers get the error op
                     with self._cv:
                         self._worker_error = e
                         self._cv.notify_all()
+                    if self._channel is not None:
+                        self._channel.abandon(traceback.format_exc())
                     raise
 
     def stop(self) -> None:
@@ -926,6 +1015,94 @@ class AnalyticsService:
         if self._thread is not None:
             self._thread.join(timeout=60.0)
             self._thread = None
+
+    # -- SPMD ranks ---------------------------------------------------------
+
+    @property
+    def front_door(self) -> bool:
+        """True on the rank that takes requests: the only rank of a
+        one-device service, rank 0 of a sharded service's mesh."""
+        return self._channel is None or self._channel.front
+
+    def _send(self, op: str, *args) -> None:
+        """Broadcast one op record to the followers (under the lock): the
+        op, its arguments, and the records admitted since the last op. A
+        no-op on one device; a follower must not drive the service."""
+        if self._channel is None:
+            return
+        if not self._channel.front:
+            raise RuntimeError(
+                "this rank follows the service's front door (rank 0 of its "
+                "mesh): run follow() here, and drive the service there")
+        records, self._outbox = self._outbox, []
+        self._channel.send(op, args, records)
+        self._last_op = time.monotonic()
+
+    def follow(self) -> None:
+        """Serve as a follower of a sharded service (ranks > 0 of its
+        mesh): apply the front door's op records and run the same ops, so
+        every collective of the engines lines up, until the stop op
+        arrives. Raises with the front door's traceback on the error op."""
+        if self.front_door:
+            raise RuntimeError(
+                "follow() runs on the ranks > 0 of a sharded service's mesh; "
+                "this rank is the front door")
+        while True:
+            op, args, records = self._channel.recv()
+            with self._cv:
+                for rec in records:
+                    want, reason = rec.status, rec.reason
+                    rec.status, rec.reason = QUEUED, None
+                    self._admit(rec)
+                    if (rec.status, rec.reason) != (want, reason):
+                        raise RuntimeError(
+                            f"request {rec.request.id}: this rank admitted "
+                            f"it as {rec.status}, the front door as {want}")
+                if op == fd.STOP:
+                    return
+                if op == fd.ERROR:
+                    raise RuntimeError(
+                        f"the service's front door (rank "
+                        f"{self._channel.src}) failed:\n{args[0]}")
+                if op == fd.STEP:
+                    self._tick(time.perf_counter())
+                elif op == fd.WARMUP:
+                    self._warmup(*args)
+                elif op == fd.PACKED_RESULT:
+                    self._packed.result(*args)
+                elif op != fd.HEARTBEAT:
+                    raise RuntimeError(f"unknown service op {op!r}")
+
+    def close(self, error: str | None = None) -> None:
+        """Stop the worker and, on a sharded service's front door, release
+        the followers: the stop op (their ``follow()`` returns), or the
+        error op carrying ``error`` (they raise with it). Idempotent; a
+        no-op on a follower and, but for the worker, on one device."""
+        self.stop()
+        ch = self._channel
+        if ch is None or not ch.front or ch.closed:
+            return
+        if error is not None:
+            ch.abandon(error)
+            return
+        with self._cv:
+            self._send(fd.STOP)
+
+    def lead(self, drive):
+        """Run ``drive`` on the ranks of a service: ``drive(self)`` on the
+        front door, then ``close()``; ``follow()`` on the other ranks of a
+        sharded service. Returns ``drive``'s value on the front door and
+        None elsewhere. A ``drive`` that raises sends the error op."""
+        if not self.front_door:
+            self.follow()
+            return None
+        try:
+            out = drive(self)
+        except BaseException:
+            self.close(error=traceback.format_exc())
+            raise
+        self.close()
+        return out
 
     def __enter__(self) -> "AnalyticsService":
         return self.start()

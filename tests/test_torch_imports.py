@@ -86,7 +86,11 @@ def test_port_files_are_found():
             "distributed/ranks.py", "benchmarks/dist_msbfs_teps.py",
             "core/dist2d.py", "core/dist_sssp.py",
             "benchmarks/dist2d_teps.py",
-            "benchmarks/dist_sssp_teps.py"} <= names
+            "benchmarks/dist_sssp_teps.py", "serving/frontdoor.py",
+            "examples/__init__.py", "examples/quickstart.py",
+            "examples/weighted_sssp.py", "examples/graph_analytics.py",
+            "examples/serve_analytics.py", "examples/sweep_trace.py",
+            "examples/distributed_bfs.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

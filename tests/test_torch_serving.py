@@ -8,8 +8,8 @@ read-outs on and off and with a tenant quota that rejects. The port runs on
 the CPU through the kernels' plain versions. The reference's replays are
 built once per module. Around that: the HTTP plane on loopback against a
 CPU service, the worker's failure surfacing in ``health()``, the CLI's
-stats against the reference CLI's, and the refusals that wait for the
-distributed engines.
+stats against the reference CLI's, and the sharded pools' refusal outside
+a process group.
 """
 import json
 import sys
@@ -150,10 +150,14 @@ def test_admission_controller_matches_reference():
 
 
 def test_distributed_pools_raise(case):
-    with pytest.raises(NotImplementedError, match=r"queue A item 9 \(c\)"):
+    """The sharded pools run on the ranks of a process group
+    (``tests/test_torch_serving_dist.py``): without one they raise and say
+    how to launch, as ``LaneEngine(ndev=2)`` does; ``grid=`` is not a
+    service option (the reference's service is 1-D only)."""
+    with pytest.raises(RuntimeError, match="run_ranks"):
         AnalyticsService(case.wg, ndev=2)
-    with pytest.raises(NotImplementedError, match=r"queue A item 9 \(c\)"):
-        serve_bfs.main(["--scale", "6", "--ndev", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="1-D only"):
+        AnalyticsService(case.wg, grid=(1, 1))
 
 
 def test_worker_failure_shows_in_health(case):
