@@ -53,13 +53,41 @@ phase prints one JSON line:
            timed, and 47), a row subset of it at d = 100, and the R-MAT
            graph at d = 16 (hub rows: long residue tails);
   gcn_layers      where one gcn-cora training step at ogb_products spends
-           its time (data, CSR + ELL build, forward, backward, optimizer),
-           the kernels' launches and ms in a step, its host syncs;
+           its time (data, CSR + ELL build, forward, backward, optimizer,
+           one step under torch.profiler, as for the zoo below), the
+           kernels' launches and ms in a step, its host syncs;
   gcn_train       the Trainer on gcn-cora at ogb_products (1 warm-up and 5
            timed steps) with the launch counts of that run alone (4 of each
            kernel a step), then one step on the kernels against the plain
            aggregation on the same card, and kill-and-resume at
            full_graph_sm (exact);
+  gnn_zoo  the rest of the GNN zoo: ell_spmm and spmm_residue on GIN's
+           inputs (ogb_products d = 100 and 64, the transposed graph at
+           64, minibatch_lg d = 602, full_graph_sm d = 1433), each
+           bit-equal to its float32 plain version (the residue's plain
+           version summed in slot order, as the kernel's row pass sums
+           tails of at most 64 slots) and timed beside its bound; the
+           Trainer on gin-tu at ogb_products (1 warm-up and 5 timed steps)
+           and full_graph_sm with the launches of each run (5 forward and
+           4 backward of each kernel a step), one ogb_products step on the
+           kernels against the plain aggregation; the Trainer on egnn and
+           mace (bfloat16) at full width, 3 steps each at molecule and
+           minibatch_lg, every grad_norm finite except egnn's at
+           minibatch_lg, where the run is replayed to show each gradient
+           finite and the norm finite in float64 (its float32 sum of
+           squares overflows); the gnn_neighbor_sampling example; step ms and
+           peak memory of each part; where a step goes (batch, adjacency,
+           forward, backward, optimizer; one step under torch.profiler:
+           the device's busy share and largest kernels) for gin-tu at
+           ogb_products and egnn and mace at minibatch_lg;
+  dien     DIEN at full width: the Trainer at train_batch (65,536 rows in
+           8 microbatches, 3 steps), launch.serve's serve_recsys at
+           serve_p99 (512) and serve_bulk (262,144) with the serve step
+           timed alone (serve_p99's probabilities against the same step
+           on the CPU), and the retrieval step at retrieval_cand (1 user
+           against 1,000,000 items; its top 100 against float64 scores);
+           ms and peak memory of each part, and where a train_batch step
+           goes (one microbatch's forward and backward, the profiler);
   figures  the paper's figure scripts (repro_torch.benchmarks) on the
            graph: Table 2's switching trace of the probe root's BFS (each
            direction checked against the switch rule, v_f summing to the
@@ -288,7 +316,8 @@ from repro_torch.core.packed import (LANE_WORD_BITS,  # noqa: E402
                                      unpack_lanes, word_dtype)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
-from repro_torch.data.pipeline import gnn_batch  # noqa: E402
+from repro_torch.data.pipeline import (gnn_batch, make_batch,  # noqa: E402
+                                       recsys_batch)
 from repro_torch.distributed.ranks import (load_graph,  # noqa: E402
                                            rank_device, run_ranks,
                                            save_graph)
@@ -326,12 +355,17 @@ from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
 from repro_torch.models.gnn.common import (ELL_K_MAX,  # noqa: E402
                                            build_adjacency)
+from repro_torch.examples import gnn_neighbor_sampling  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.gnn.gcn import gcn_loss  # noqa: E402
+from repro_torch.models.gnn.gin import gin_loss  # noqa: E402
+from repro_torch.models.recsys.dien import dien_user_state  # noqa: E402
 from repro_torch.obs import (ObservabilityServer, SLOConfig,  # noqa: E402
                              SweepRecorder, Telemetry, diagnose_log,
                              records_from_jsonl)
 from repro_torch.optim.adamw import (adamw_update,  # noqa: E402
-                                     clip_by_global_norm, init_opt_state)
+                                     clip_by_global_norm, global_norm,
+                                     init_opt_state)
 from repro_torch.serving import (DONE, AnalyticsService,  # noqa: E402
                                  ServiceConfig, synthetic_trace)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -387,6 +421,16 @@ BATCHED_KERNELS = ("msbfs_probe", "segment_or")
 SSSP_KERNELS = ("semiring_relax", "relax_fallback")
 GNN_KERNELS = ("ell_spmm", "spmm_residue")
 GCN_STEPS = 6  # the Trainer's run: 1 warm-up step and 5 timed
+# the gnn_zoo phase: spmm_residue.cu's row pass sums tails of at most this
+# many slots in slot order (LONG_TAIL); egnn and mace steps at each shape
+RESIDUE_LONG_TAIL = 64
+ZOO_SHAPES = ("molecule", "minibatch_lg")
+ZOO_STEPS = 3
+# (arch, shape) runs whose float32 grad_norm may overflow to inf: EGNN's
+# minibatch_lg losses reach 1e26-1e29 at random weights, so the sum of
+# squares of its gradients passes float32's range (norm_overflow_witness)
+NORM_OVERFLOWS = {("egnn", "minibatch_lg")}
+DIEN_STEPS = 3
 LANES = 64
 SSSP_LANES = 32
 SWEEP_TIMED_ROW = 20  # sssp_layers times relax_fallback in full from here
@@ -1454,7 +1498,8 @@ class GnnKernelCheck:
     bound ratio is kept beside its check); keeps the cases, the largest
     error and ratio to the bound, and the times of each timed input."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "gnn_kernel"):
+        self.phase = phase
         self.rec = {name: dict(cases=0, max_abs_err=0.0, max_bound_ratio=0.0)
                     for name in GNN_KERNELS}
         self.rec["ell_spmm"].update(bit_equal_f32=True, max_abs_err_f64=0.0)
@@ -1552,7 +1597,7 @@ class GnnKernelCheck:
                     self.rec[name].update(t, timed_input=label)
             del lib_slab, lib_tail
         self.rows.append(row)
-        emit("gnn_kernel", **row)
+        emit(self.phase, **row)
 
 
 def gnn_kernel(chk, g_rmat, dev, reps, flush):
@@ -1594,48 +1639,16 @@ def gnn_kernel(chk, g_rmat, dev, reps, flush):
 
 def gcn_layers(dev, reps, flush):
     """Where one gcn-cora training step at ogb_products spends its time:
-    data generation, the two CSRs and ELL slabs, forward, backward and
-    optimizer (host wall ms, each ending in a device sync), the kernels'
-    launches and device ms in a step, and the step's host syncs."""
+    step_breakdown's record, then the kernels' launches and device ms in a
+    step and the step's host syncs."""
     arch = get_arch("gcn-cora")
     shape = arch.shape("ogb_products")
     cfg = effective_cfg(arch, shape)
-    init_fn, _ = param_builders(arch, shape)
-    params = {k: v.to(dev) for k, v in init_fn(
-        torch.Generator().manual_seed(SEED)).items()}
-    opt_state = init_opt_state(params, arch.opt)
-    step = make_step(arch, shape)
-    out = dict(shape=shape.shape_id, n=shape.dims["n_nodes"],
-               e=shape.dims["n_edges"], d_feat=cfg.d_feat,
-               d_hidden=cfg.d_hidden, n_classes=cfg.n_classes)
-    out["data_ms"] = wall_ms(
-        lambda: gnn_batch(arch, shape, 0, seed=SEED, device=dev), reps)
-    gb = gnn_batch(arch, shape, 0, seed=SEED, device=dev)
-    out["csr_ell_ms"] = wall_ms(lambda: build_adjacency(gb), reps)
-    adj = build_adjacency(gb)
-    fwd_ms, bwd_ms = [], []
-    for _ in range(reps + 1):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = gcn_loss(leaves, gb, cfg, adj)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()))))
-        torch.cuda.synchronize()
-        fwd_ms.append((t1 - t0) * 1e3)
-        bwd_ms.append((time.perf_counter() - t1) * 1e3)
-    out["forward_ms"] = statistics.median(fwd_ms[1:])
-    out["backward_ms"] = statistics.median(bwd_ms[1:])
-
-    def optimizer():
-        clipped, _ = clip_by_global_norm(grads, arch.opt.grad_clip)
-        adamw_update(params, clipped, opt_state, arch.opt)
-
-    out["optimizer_ms"] = wall_ms(optimizer, reps)
-    out["step_ms"] = wall_ms(lambda: step(params, opt_state, gb), reps)
+    out, (params, opt_state, step, gb) = step_breakdown(
+        arch, shape.shape_id, dev, reps)
+    out.update(n=shape.dims["n_nodes"], e=shape.dims["n_edges"],
+               d_feat=cfg.d_feat, d_hidden=cfg.d_hidden,
+               n_classes=cfg.n_classes)
     common.reset_launches()
     step(params, opt_state, gb)
     torch.cuda.synchronize()
@@ -1643,6 +1656,7 @@ def gcn_layers(dev, reps, flush):
     out["syncs_per_step"] = syncs_of(lambda: step(params, opt_state, gb))
     # each kernel at the step's four shapes: forward and transposed graph,
     # d = d_hidden (layer 0) and n_classes (layer 1)
+    adj = build_adjacency(gb)
     per = {k: 0.0 for k in GNN_KERNELS}
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     for d in (cfg.d_hidden, cfg.n_classes):
@@ -1660,7 +1674,6 @@ def gcn_layers(dev, reps, flush):
     out["spmm_residue_scratch_bytes"] = max(
         residue_scratch(g.m, d)[1] for g in (adj.fwd, adj.bwd)
         for d in (cfg.d_hidden, cfg.n_classes))
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     emit("gcn_layers", **out)
     check(out["launches_per_step"] == {k: 4 for k in GNN_KERNELS},
           f"a gcn step launched {out['launches_per_step']}, not 4 each")
@@ -1671,53 +1684,45 @@ def rel_diff(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def loss_grads(loss_fn, params, batch):
+    """(loss, gradients) of ``loss_fn(leaves, batch)`` at ``params``: the
+    gradients in the order of ``params``, zeros where a leaf is unused."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = loss_fn(leaves, batch)
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), [torch.zeros_like(v) if g is None else g
+                           for v, g in zip(leaves.values(), got)]
+
+
+def kernel_vs_plain(tr, loss, dev) -> list[float]:
+    """The loss and gradients of ``loss(params, batch, cfg, adj, impl)`` at
+    the trainer's parameters on its shape's step-0 batch, on the kernels
+    (spmm_aggregate) against the plain aggregation (spmm_aggregate_ref) on
+    the same card: each within 1e-4 of the plain tensor's largest
+    magnitude. Returns those relative differences, the loss's first."""
+    cfg = effective_cfg(tr.arch, tr.shape)
+    gb = gnn_batch(tr.arch, tr.shape, 0, seed=SEED, device=dev)
+    adj = build_adjacency(gb)
+    runs = []
+    for impl in (spmm_aggregate, spmm_aggregate_ref):
+        loss_v, grads = loss_grads(
+            lambda p, b: loss(p, b, cfg, adj, impl), tr.params, gb)
+        runs.append([loss_v] + grads)
+    diffs = [rel_diff(a, b) for a, b in zip(*runs)]
+    check(max(diffs) <= 1e-4,
+          f"kernel and plain {tr.arch.arch_id} steps differ: {diffs}")
+    return diffs
+
+
 def run_gcn_path(dev):
     """The Trainer on gcn-cora at ogb_products (1 warm-up step and 5
     timed), with the launch counts of that run alone; then one step's loss
     and gradients on the kernels against the plain aggregation on the same
     card, and kill-and-resume at full_graph_sm. Returns the launches."""
     arch = get_arch("gcn-cora")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    common.reset_launches()
-    t0 = time.perf_counter()
-    tr = Trainer(arch, "ogb_products", cfg=TrainerConfig(
-        steps=GCN_STEPS, log_every=1, seed=SEED))
-    log = tr.run()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(common.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    for name in GNN_KERNELS:
-        check(launches[name] == 4 * GCN_STEPS,
-              f"{name} launched {launches[name]} times in {GCN_STEPS} steps, "
-              f"not 4 a step")
-    check(tr.device.type == "cuda", "the Trainer did not run on the GPU")
-    losses = [m["loss"] for m in log]
-    norms = [m["grad_norm"] for m in log]
-    check(len(log) == GCN_STEPS and all(np.isfinite(losses + norms)),
-          "a gcn-cora loss or grad_norm is not finite")
-    check(all(v > 0 for v in norms), "a gcn-cora grad_norm is 0")
-    walls = [0.0] + [m["wall"] for m in log]
-    step_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
-
-    # one step on the kernels against the plain aggregation, same card
-    shape = arch.shape("ogb_products")
-    cfg = effective_cfg(arch, shape)
-    gb = gnn_batch(arch, shape, 0, seed=SEED, device=dev)
-    adj = build_adjacency(gb)
-
-    def loss_grads(impl):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in tr.params.items()}
-        loss, _ = gcn_loss(leaves, gb, cfg, adj, impl)
-        return [loss.detach()] + list(torch.autograd.grad(
-            loss, list(leaves.values())))
-
-    kern, plain = loss_grads(spmm_aggregate), loss_grads(spmm_aggregate_ref)
-    diffs = [rel_diff(a, b) for a, b in zip(kern, plain)]
-    check(max(diffs) <= 1e-4, f"kernel and plain gcn steps differ: {diffs}")
-    del gb, adj, kern, plain
+    tr, run = trainer_run(arch, "ogb_products", GCN_STEPS, dev, per_step=4)
+    diffs = kernel_vs_plain(tr, gcn_loss, dev)
+    del tr
 
     # kill-and-resume at full_graph_sm: 6 steps = 3, restart, 3 more
     with tempfile.TemporaryDirectory() as tmp:
@@ -1733,16 +1738,359 @@ def run_gcn_path(dev):
     check(log_a[-1]["loss"] == log_b[-1]["loss"],
           "kill-and-resume changed the final loss")
     emit("gcn_train", entry="repro_torch.train.trainer.Trainer.run",
-         arch="gcn-cora", shape="ogb_products", steps=GCN_STEPS,
-         seconds=seconds, launches=launches,
-         launches_per_step={k: launches[k] / GCN_STEPS for k in GNN_KERNELS},
-         step_ms=step_ms, timed_step_ms_median=statistics.median(step_ms[1:]),
-         timed_step_ms_max=max(step_ms[1:]), peak_mem_bytes=peak,
-         losses=losses, grad_norms=norms,
+         arch="gcn-cora", shape="ogb_products", steps=GCN_STEPS, **run,
          kernel_vs_plain_rel_diff=dict(loss=diffs[0], grads=diffs[1:]),
          kill_resume=dict(shape="full_graph_sm", steps=6,
                           final_loss=log_a[-1]["loss"], exact=True))
-    return launches
+    return run["launches"]
+
+
+def residue_slot_order(g, x, y, k_max):
+    """The residue fold in plain PyTorch, summed as spmm_residue.cu's row
+    pass sums a tail of at most RESIDUE_LONG_TAIL slots: the row's tail
+    slots in slot order from 0.0, added to y once; rows without a tail keep
+    y. A new tensor."""
+    deg = g.deg
+    n_src = x.shape[0]
+    tail = torch.zeros_like(y)
+    for pos in range(k_max, int(deg.max()) if g.n else k_max):
+        rows = (deg > pos).nonzero().squeeze(1)
+        cols = g.col_idx[(g.row_ptr[rows] + pos).long()].long()
+        tail[rows] = tail[rows] + x[cols.clamp(0, n_src - 1)]
+    out = y.clone()
+    has = deg > k_max
+    out[has] = out[has] + tail[has]
+    return out
+
+
+def gin_kernel_inputs(dev):
+    """GIN's aggregation inputs on seeded gin-tu batches: (label, graph,
+    slab, x) with x the layer-0 features or a seeded hidden-width
+    tensor."""
+    arch = get_arch("gin-tu")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for shape_id, hidden in (("ogb_products", True), ("minibatch_lg", False),
+                             ("full_graph_sm", False)):
+        gb = gnn_batch(arch, arch.shape(shape_id), 0, seed=SEED + 5,
+                       device=dev)
+        adj = build_adjacency(gb)
+        d = gb.feats.shape[1]
+        yield f"gin {shape_id} fwd d={d}", adj.fwd, adj.fwd_ell, gb.feats
+        if hidden:
+            h = torch.randn((gb.n_nodes, arch.model_cfg.d_hidden),
+                            generator=gen, device=dev)
+            for name, g, ell in (("fwd", adj.fwd, adj.fwd_ell),
+                                 ("bwd", adj.bwd, adj.bwd_ell)):
+                yield (f"gin {shape_id} {name} d={h.shape[1]}", g, ell, h)
+        del gb, adj
+
+
+def gin_kernels(chk, dev, reps, flush):
+    """Both kernels on each of GIN's inputs: chk's checks (ell_spmm
+    bit-equal to its float32 plain version, spmm_residue within float32's
+    bound of its float64 plain version) and times, and spmm_residue
+    bit-equal to residue_slot_order, which needs every tail within the row
+    pass (at most RESIDUE_LONG_TAIL slots)."""
+    for label, g, (neigh, valid), x in gin_kernel_inputs(dev):
+        tail = int((g.deg - ELL_K_MAX).clamp(min=0).max())
+        check(tail <= RESIDUE_LONG_TAIL, f"{label} has a tail of {tail} "
+                                         f"slots, past the row pass")
+        y = ell_spmm_cuda(neigh, valid, x)
+        want = residue_slot_order(g, x, y, ELL_K_MAX)
+        got = spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y,
+                                ELL_K_MAX)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"spmm_residue differs from its slot-order plain version on "
+              f"{label}")
+        del y, want, got
+        chk.run(label, g, neigh, valid, x, ELL_K_MAX, reps, flush)
+    for name, r in chk.rec.items():
+        emit("gnn_zoo", part="kernels", name=name,
+             residue_bit_equal=name == "spmm_residue", **r)
+
+
+def trainer_run(arch, shape_id, steps, dev, per_step=None):
+    """The Trainer's run with the launch counts and peak memory of that
+    run alone: (trainer, record). Every loss must be finite and every
+    grad_norm above 0. Every grad_norm must be finite too, except where
+    NORM_OVERFLOWS lists the run and norm_overflow_witness shows that only
+    the float32 sum of squares overflowed. ``per_step``: the launches of
+    each GNN kernel a step must make."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    tr = Trainer(arch, shape_id, cfg=TrainerConfig(
+        steps=steps, log_every=1, seed=SEED))
+    log = quiet(tr.run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    name = f"{arch.arch_id} at {shape_id}"
+    check(tr.device.type == "cuda", "the Trainer did not run on the GPU")
+    if per_step is not None:
+        for k in GNN_KERNELS:
+            check(launches.get(k) == per_step * steps,
+                  f"{k} launched {launches.get(k, 0)} times in {steps} "
+                  f"{name} steps, not {per_step} a step")
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    check(len(log) == steps and all(np.isfinite(losses)),
+          f"a {name} loss is not finite")
+    check(all(v > 0 for v in norms), f"a {name} grad_norm is 0 or NaN")
+    walls = [0.0] + [m["wall"] for m in log]
+    step_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    run = dict(seconds=seconds, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               step_ms=step_ms,
+               timed_step_ms_median=statistics.median(step_ms[1:]),
+               timed_step_ms_max=max(step_ms[1:]), peak_mem_bytes=peak,
+               losses=losses, grad_norms=norms)
+    if not all(np.isfinite(norms)):
+        check((arch.arch_id, shape_id) in NORM_OVERFLOWS,
+              f"a {name} grad_norm is not finite: {norms}")
+        run["norm_witness"] = norm_overflow_witness(arch, shape_id, log,
+                                                    dev)
+    return tr, run
+
+
+def norm_overflow_witness(arch, shape_id, log, dev) -> dict:
+    """Replays the Trainer's run (its seed's parameters and batches, the
+    same step) and takes each step's gradients again before the step: every
+    element must be finite and their norm in float64 finite and above 0;
+    where the Trainer's grad_norm was not finite, the float32 norm that
+    clip_by_global_norm computes must not be finite either. That shows the
+    inf is the float32 sum of squares overflowing, not the gradient.
+    Returns both norms a step and the largest gradient element."""
+    shape = arch.shape(shape_id)
+    init_fn, loss_fn = param_builders(arch, shape)
+    params = {k: v.to(dev) for k, v in init_fn(
+        torch.Generator().manual_seed(SEED)).items()}
+    opt_state = init_opt_state(params, arch.opt)
+    step = make_step(arch, shape)
+    out = dict(grad_norm_f64=[], grad_norm_f32=[], max_abs_grad=[])
+    for s, m in enumerate(log):
+        batch = make_batch(arch, shape, s, seed=SEED, device=dev)
+        _, grads = loss_grads(loss_fn, params, batch)
+        bad = [k for k, g in zip(params, grads)
+               if not bool(torch.isfinite(g).all())]
+        check(not bad, f"{arch.arch_id} at {shape_id}, step {s + 1}: "
+                       f"gradients not finite: {bad}")
+        f64 = float(torch.stack([g.double().square().sum()
+                                 for g in grads]).sum().sqrt())
+        f32 = float(global_norm(dict(zip(params, grads))))
+        check(np.isfinite(f64) and f64 > 0
+              and (np.isfinite(m["grad_norm"]) or not np.isfinite(f32)),
+              f"{arch.arch_id} at {shape_id}, step {s + 1}: grad norm "
+              f"{f64} in float64, {f32} in float32, the Trainer's "
+              f"{m['grad_norm']}")
+        out["grad_norm_f64"].append(f64)
+        out["grad_norm_f32"].append(f32)
+        out["max_abs_grad"].append(max(float(g.abs().max()) for g in grads))
+        params, opt_state, _ = step(params, opt_state, batch)
+    return out
+
+
+def run_gnn_zoo(dev, smi, reps, flush):
+    """The gnn_zoo phase. Returns GIN's record for the kernels line."""
+    chk = GnnKernelCheck("gnn_zoo")
+    gin_kernels(chk, dev, reps, flush)
+    gin = get_arch("gin-tu")
+    runs = {}
+    for shape_id in ("ogb_products", "full_graph_sm"):
+        tr, run = trainer_run(gin, shape_id, GCN_STEPS, dev,
+                              per_step=2 * gin.model_cfg.n_layers - 1)
+        runs[shape_id] = run
+        emit("gnn_zoo", part="gin_train", card=smi, arch="gin-tu",
+             shape=shape_id, steps=GCN_STEPS, **run)
+        if shape_id == "ogb_products":
+            diffs = kernel_vs_plain(tr, gin_loss, dev)
+            emit("gnn_zoo", part="gin_kernel_vs_plain", shape=shape_id,
+                 loss_rel_diff=diffs[0], max_grad_rel_diff=max(diffs[1:]))
+        del tr
+    emit("gnn_zoo", part="breakdown", card=smi,
+         **step_breakdown(gin, "ogb_products", dev)[0])
+    for arch_id in ("egnn", "mace"):
+        arch = get_arch(arch_id)
+        for shape_id in ZOO_SHAPES:
+            tr, run = trainer_run(arch, shape_id, ZOO_STEPS, dev)
+            emit("gnn_zoo", part=arch_id, card=smi, arch=arch_id,
+                 shape=shape_id, dtype=arch.model_cfg.dtype,
+                 steps=ZOO_STEPS, **run)
+            del tr
+        emit("gnn_zoo", part="breakdown", card=smi,
+             **step_breakdown(arch, "minibatch_lg", dev)[0])
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = quiet(gnn_neighbor_sampling.main, [])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    example = {k: common.LAUNCHES[k] for k in GNN_KERNELS}
+    check(all(v > 0 for v in example.values()),
+          f"gnn_neighbor_sampling launched {example}")
+    check(all(np.isfinite(out["losses"])),
+          "a gnn_neighbor_sampling loss is not finite")
+    emit("gnn_zoo", part="example", card=smi,
+         entry="repro_torch.examples.gnn_neighbor_sampling.main",
+         seconds=seconds, launches=example, steps=out["steps"],
+         first_loss=out["losses"][0], last_loss=out["losses"][-1],
+         rows=out["rows"])
+    return dict(rec=chk.rec, runs=runs, example_launches=example)
+
+
+def step_breakdown(arch, shape_id, dev, reps: int = 3):
+    """Where one train step of ``arch`` at ``shape_id`` spends its time:
+    the batch, the adjacency (a GNN's, built inside its forward), forward
+    and backward (of one microbatch when there are several), clipping and
+    the AdamW update, the whole step (host wall ms, each ending in a device
+    sync; medians); then one step under torch.profiler: the device's busy
+    ms (its events' summed time) and share of the step, and the six
+    largest device times by name (none when the profiler sees no device
+    events). Returns (that record, (params, opt_state, step, batch))."""
+    shape = arch.shape(shape_id)
+    init_fn, loss_fn = param_builders(arch, shape)
+    params = {k: v.to(dev) for k, v in init_fn(
+        torch.Generator().manual_seed(SEED)).items()}
+    opt_state = init_opt_state(params, arch.opt)
+    step = make_step(arch, shape)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(arch=arch.arch_id, shape=shape_id,
+               microbatches=arch.microbatches)
+    out["data_ms"] = wall_ms(
+        lambda: make_batch(arch, shape, 0, seed=SEED, device=dev), reps)
+    batch = make_batch(arch, shape, 0, seed=SEED, device=dev)
+    if arch.family == "gnn":
+        out["adjacency_ms"] = wall_ms(lambda: build_adjacency(batch), reps)
+        mb = batch
+    else:
+        k = arch.microbatches
+        mb = {key: v[:v.shape[0] // k] for key, v in batch.items()}
+    fwd, bwd = [], []
+    for _ in range(reps + 1):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(leaves, mb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = torch.autograd.grad(loss, list(leaves.values()),
+                                  allow_unused=True)
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    out["forward_ms"] = statistics.median(fwd[1:])
+    out["backward_ms"] = statistics.median(bwd[1:])
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(params.items(), got)}
+    out["optimizer_ms"] = wall_ms(lambda: adamw_update(
+        params, clip_by_global_norm(grads, arch.opt.grad_clip)[0],
+        opt_state, arch.opt), reps)
+    del grads, got, leaves, loss
+    out["step_ms"] = wall_ms(lambda: step(params, opt_state, batch), reps)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device's own events (kernels, copies, fills): each once
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    out.update(profiled_step_ms=wall, device_busy_ms=busy,
+               device_busy_share=busy / wall if busy else None,
+               top_device_ms=[dict(name=e.key[:80], count=e.count,
+                                   ms=e.self_device_time_total / 1e3)
+                              for e in top])
+    return out, (params, opt_state, step, batch)
+
+
+def peak_of(fn):
+    """(fn's result, its wall ms ending in a device sync, the peak bytes it
+    allocated over what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def run_dien(dev, smi):
+    """The dien phase: the Trainer at train_batch, launch.serve's
+    serve_recsys at the two serve shapes with the serve step timed alone,
+    and the retrieval step."""
+    arch = get_arch("dien")
+    tr, run = trainer_run(arch, "train_batch", DIEN_STEPS, dev)
+    emit("dien", part="train", card=smi, shape="train_batch",
+         rows=arch.shape("train_batch").dims["batch"],
+         microbatches=arch.microbatches, steps=DIEN_STEPS, **run)
+    del tr
+    emit("dien", part="breakdown", card=smi,
+         **step_breakdown(arch, "train_batch", dev)[0])
+    cpu_params = param_builders(arch)[0](torch.Generator().manual_seed(SEED))
+    params = {k: v.to(dev) for k, v in cpu_params.items()}
+    for shape_id, reps in (("serve_p99", 5), ("serve_bulk", 2)):
+        shape = arch.shape(shape_id)
+        rows = shape.dims["batch"]
+        probs, entry_ms, entry_peak = peak_of(lambda: quiet(
+            launch_serve.serve_recsys, arch, rows, SEED))
+        check(probs.device.type == "cuda" and probs.shape == (rows,)
+              and bool(((probs > 0) & (probs < 1)).all()),
+              f"serve_recsys at {shape_id} gave no probabilities")
+        del probs
+        batch = recsys_batch(arch, shape, 0, SEED, device=dev)
+        step = make_step(arch, shape)
+        out, _, step_peak = peak_of(lambda: step(params, batch))
+        extra = {}
+        if shape_id == "serve_p99":
+            cpu = step(cpu_params, {k: v.cpu() for k, v in batch.items()})
+            extra["max_abs_diff_vs_cpu"] = float((out.cpu() - cpu).abs().max())
+            check(extra["max_abs_diff_vs_cpu"] <= 1e-4,
+                  f"serve_p99 on the card differs from the CPU: {extra}")
+        del out
+        emit("dien", part="serve", card=smi, shape=shape_id, rows=rows,
+             entry="repro_torch.launch.serve.serve_recsys",
+             entry_ms=entry_ms, entry_peak_mem_bytes=entry_peak,
+             step_ms=wall_ms(lambda: step(params, batch), reps),
+             peak_mem_bytes=step_peak, **extra)
+        del batch
+    shape = arch.shape("retrieval_cand")
+    batch = recsys_batch(arch, shape, 0, SEED, device=dev)
+    step = make_step(arch, shape)
+    top, _, peak = peak_of(lambda: step(params, batch))
+    # the scores again in float64 from the users' final interest
+    with torch.inference_mode():
+        h_t = dien_user_state(params, batch, arch.model_cfg)[0]
+        cand = params["item_table"][batch["candidate_ids"].long()]
+        s64 = (h_t.double() @ params["user_proj.w"].double()
+               @ cand.double().T)
+    check(top.shape == (shape.dims["batch"], 100),
+          f"the retrieval step returned {tuple(top.shape)}")
+    for row, ids in zip(s64, top):
+        rest = row.clone()
+        rest[ids] = -INF
+        tol = 1e-5 * float(row.abs().max())
+        check(ids.unique().numel() == 100
+              and float(rest.max()) <= float(row[ids].min()) + tol
+              and bool((row[ids].diff() <= tol).all()),
+              "the retrieval step's top 100 is not the best 100 in order")
+    emit("dien", part="retrieval", card=smi, shape="retrieval_cand",
+         candidates=shape.dims["n_candidates"],
+         step_ms=wall_ms(lambda: step(params, batch), 5),
+         peak_mem_bytes=peak, top1=int(top[0, 0]))
 
 
 def quiet(fn, *args, **kwargs):
@@ -3722,6 +4070,10 @@ def main(argv=None) -> int:
     gcn_layers(dev, max(args.reps // 4, 3), flush)
     del flush
     gcn_launches = run_gcn_path(dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    gin = run_gnn_zoo(dev, smi, max(args.reps // 4, 3), flush)
+    del flush
+    run_dien(dev, smi)
 
     figure_tables(g, args, states)
     figure3(g, args)
@@ -3747,6 +4099,17 @@ def main(argv=None) -> int:
                        inputs=r["inputs"],
                        **{k: r[k] for k in ("bit_equal_f32", "max_abs_err_f64")
                           if k in r})
+            # GIN (gin-tu): the Trainer's launches, the example's, and
+            # the kernel on GIN's inputs (bit-equal, timed)
+            g = gin["rec"][name]
+            per["gin"] = dict(
+                launches={k: v["launches"][name]
+                          for k, v in gin["runs"].items()},
+                launches_per_step={k: v["launches_per_step"][name]
+                                   for k, v in gin["runs"].items()},
+                example_launches=gin["example_launches"][name],
+                bit_equal=True, max_abs_err=g["max_abs_err"],
+                max_bound_ratio=g["max_bound_ratio"], inputs=g["inputs"])
         elif name in SSSP_KERNELS:
             r, count = rchk.rec[name], sssp_launches[name]
             per = dict(launches_per_step=count / sssp_steps)

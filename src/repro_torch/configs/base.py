@@ -2,14 +2,16 @@
 ``repro/configs/base.py``).
 
 Every ported architecture registers an ``Arch`` here; the trainer, the
-launcher and the tests read this one interface. Ported so far: the GCN
-family member ``gcn-cora`` and its training step (one microbatch). Every
-other family, step kind or microbatch count raises ``NotImplementedError``
-until its slice (ROADMAP A10).
+launcher and the tests read this one interface. Ported so far: the four
+GNNs (``gcn-cora``, ``gin-tu``, ``egnn``, ``mace``) and DIEN (``dien``),
+with the train step (gradient accumulation over microbatches too), the
+serve step and the retrieval step. The LM families and their prefill and
+decode steps raise ``NotImplementedError`` until ROADMAP A10 (d).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -18,7 +20,7 @@ import torch
 from repro_torch.optim.adamw import (OptConfig, adamw_update,
                                      clip_by_global_norm)
 
-_NOT_PORTED = "not ported yet (ROADMAP A10)"
+_NOT_PORTED = "not ported yet (ROADMAP A10 (d))"
 
 
 @dataclass(frozen=True)
@@ -79,37 +81,106 @@ def effective_cfg(arch: Arch, shape: Shape | None):
     return dataclasses.replace(cfg, **over)
 
 
+# model config class -> (module under repro_torch.models, init, loss)
+_MODELS = {"GCNConfig": ("gnn.gcn", "init_gcn", "gcn_loss"),
+           "GINConfig": ("gnn.gin", "init_gin", "gin_loss"),
+           "EGNNConfig": ("gnn.egnn", "init_egnn", "egnn_loss"),
+           "MACEConfig": ("gnn.mace", "init_mace", "mace_loss"),
+           "DIENConfig": ("recsys.dien", "init_dien", "dien_loss")}
+
+
 def param_builders(arch: Arch, shape: Shape | None = None):
     """Returns (init_fn(generator) -> params, loss_fn(params, batch))."""
     cfg = effective_cfg(arch, shape)
-    if arch.family == "gnn" and type(cfg).__name__ == "GCNConfig":
-        from repro_torch.models.gnn.gcn import gcn_loss, init_gcn
-        return (lambda g: init_gcn(g, cfg)), (lambda p, b: gcn_loss(p, b, cfg))
-    raise NotImplementedError(
-        f"{arch.family} model {type(cfg).__name__} is {_NOT_PORTED}")
+    name = type(cfg).__name__
+    if name not in _MODELS:
+        raise NotImplementedError(
+            f"{arch.family} model {name} is {_NOT_PORTED}")
+    path, init, loss = _MODELS[name]
+    mod = importlib.import_module(f"repro_torch.models.{path}")
+    init, loss = getattr(mod, init), getattr(mod, loss)
+    return (lambda g: init(g, cfg)), (lambda p, b: loss(p, b, cfg))
+
+
+def _microbatches(batch: dict, k: int):
+    """Microbatch i of a dict batch: rows [i * B / k, (i + 1) * B / k) of
+    every tensor (B must divide by k, as the reference's reshape needs)."""
+    split = {key: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+             for key, v in batch.items()}
+    return [{key: v[i] for key, v in split.items()} for i in range(k)]
 
 
 def make_step(arch: Arch, shape: Shape) -> Callable:
-    """train: step(params, opt_state, batch) -> (params, opt_state, metrics),
-    with gradients clipped by global norm and an AdamW update."""
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind} steps are {_NOT_PORTED}")
-    if arch.microbatches != 1:
-        raise NotImplementedError(
-            f"gradient accumulation over {arch.microbatches} microbatches "
-            f"is {_NOT_PORTED}")
-    _, loss_fn = param_builders(arch, shape)
-    opt_cfg = arch.opt
+    """The function the trainer and the serving launcher execute:
 
-    def train_step(params, opt_state, batch):
-        leaves = {k: p.detach().requires_grad_(True)
-                  for k, p in params.items()}
-        loss, metrics = loss_fn(leaves, batch)
-        grads = dict(zip(leaves, torch.autograd.grad(loss,
-                                                     list(leaves.values()))))
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
-        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=loss.detach(), grad_norm=gnorm)
-        return params, opt_state, metrics
-    return train_step
+    train:     step(params, opt_state, batch) -> (params, opt_state,
+               metrics), gradients clipped by global norm and an AdamW
+               update; with ``arch.microbatches`` k > 1 the gradient is the
+               sum of the k microbatches' gradients over k, accumulated in
+               ``opt.accum_dtype`` in microbatch order, and the metrics are
+               the mean loss and the grad norm, as the reference's;
+    serve:     step(params, batch) -> CTR probabilities [B] (recsys);
+    retrieval: step(params, batch) -> top-100 candidate ids [B, 100].
+
+    Serve and retrieval steps run under ``torch.inference_mode()``.
+    """
+    cfg = effective_cfg(arch, shape)
+    _, loss_fn = param_builders(arch, shape)
+
+    if shape.kind == "train":
+        opt_cfg = arch.opt
+        k = max(1, arch.microbatches)
+
+        def grads_of(params, batch):
+            leaves = {n: p.detach().requires_grad_(True)
+                      for n, p in params.items()}
+            loss, metrics = loss_fn(leaves, batch)
+            got = torch.autograd.grad(loss, list(leaves.values()),
+                                      allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(leaves.items(), got)}
+            return loss.detach(), metrics, grads
+
+        def train_step(params, opt_state, batch):
+            if k > 1:
+                acc_dt = getattr(torch, opt_cfg.accum_dtype)
+                grads = {n: torch.zeros(p.shape, dtype=acc_dt,
+                                        device=p.device)
+                         for n, p in params.items()}
+                losses = []
+                for mb in _microbatches(batch, k):
+                    loss, _, g = grads_of(params, mb)
+                    grads = {n: a + (g[n] / k).to(acc_dt)
+                             for n, a in grads.items()}
+                    losses.append(loss)
+                loss = torch.stack(losses).mean()
+                metrics = {}
+            else:
+                loss, metrics, grads = grads_of(params, batch)
+                metrics = {n: v.detach() for n, v in metrics.items()}
+            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            params, opt_state = adamw_update(params, grads, opt_state,
+                                             opt_cfg)
+            metrics.update(loss=loss, grad_norm=gnorm)
+            return params, opt_state, metrics
+        return train_step
+
+    if shape.kind == "serve" and arch.family == "recsys":
+        from repro_torch.models.recsys.dien import dien_forward
+
+        @torch.inference_mode()
+        def serve_step(params, batch):
+            return torch.sigmoid(dien_forward(params, batch, cfg))
+        return serve_step
+
+    if shape.kind == "retrieval" and arch.family == "recsys":
+        from repro_torch.models.recsys.dien import dien_retrieval
+
+        @torch.inference_mode()
+        def retrieval_step(params, batch):
+            _, top = dien_retrieval(params, batch, cfg)
+            return top
+        return retrieval_step
+
+    raise NotImplementedError(f"{shape.kind} steps of {arch.family} are "
+                              f"{_NOT_PORTED}")

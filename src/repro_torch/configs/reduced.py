@@ -1,6 +1,6 @@
 """Reduced per-arch configs (port of ``repro/configs/reduced.py``): same
-family and structure, small dims, for the CPU tests and quick runs. Only
-the GNN family is ported; the others raise until ROADMAP A10."""
+family and structure, small dims, for the CPU tests and quick runs. The
+GNN and recsys families are ported; the LMs raise until ROADMAP A10 (d)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,9 +30,27 @@ def _gnn_reduced(arch: Arch) -> Arch:
                                microbatches=1)
 
 
+def _recsys_reduced(arch: Arch) -> Arch:
+    cfg = arch.model_cfg
+    small = dataclasses.replace(cfg, n_items=2000, n_cats=20, n_profiles=100,
+                                seq_len=12, gru_dim=24, mlp_dims=(32, 16))
+    shapes = (
+        Shape("train_batch", "train", dims=dict(batch=16)),
+        Shape("serve_p99", "serve", dims=dict(batch=8)),
+        Shape("serve_bulk", "serve", dims=dict(batch=32)),
+        Shape("retrieval_cand", "retrieval",
+              dims=dict(batch=2, n_candidates=500)),
+    )
+    return dataclasses.replace(arch, arch_id=arch.arch_id + "-reduced",
+                               model_cfg=small, shapes=shapes,
+                               microbatches=2)
+
+
 def reduce_arch(arch_id: str) -> Arch:
     arch = get_arch(arch_id)
     if arch.family == "gnn":
         return _gnn_reduced(arch)
+    if arch.family == "recsys":
+        return _recsys_reduced(arch)
     raise NotImplementedError(
-        f"reduced {arch.family} configs are not ported yet (ROADMAP A10)")
+        f"reduced {arch.family} configs are not ported yet (ROADMAP A10 (d))")

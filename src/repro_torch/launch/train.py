@@ -1,11 +1,13 @@
 """Training launcher, on the GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \
       [--shape ogb_products] [--reduced] [--steps N] [--ckpt-dir D] \
       [--seed S] [--device cpu]
 
-``--reduced`` runs the small config of ``configs/reduced.py``; the default
-shape is the arch's first train shape (``full_graph_sm`` for gcn-cora).
+``--arch`` is any registered arch (``configs.base.list_archs()``: dien,
+egnn, gcn-cora, gin-tu, mace). ``--reduced`` runs the small config of
+``configs/reduced.py``; the default shape is the arch's first train shape
+(``full_graph_sm`` for the GNNs, ``train_batch`` for dien).
 Without ``--device`` the run goes to the GPU and raises when there is none.
 Model parallelism is not ported (ROADMAP A9): ``--model-parallel`` above 1
 raises.

@@ -1,1 +1,2 @@
-"""Models (port of ``repro.models``): the GCN slice so far."""
+"""Models (port of ``repro.models``): the GNNs (GCN, GIN, EGNN, MACE) and
+DIEN so far."""

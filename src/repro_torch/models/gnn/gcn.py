@@ -13,15 +13,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.kernels.ell_spmm.ops import spmm_aggregate
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import (Adjacency, GraphBatch, aggregate,
                                            build_adjacency, sum_aggregate)
+from repro_torch.models.params import (opt_state_from_numpy,  # noqa: F401
+                                       params_from_numpy)
 
 
 @dataclass(frozen=True)
@@ -109,38 +109,5 @@ class GCN(nn.Module):
         return gcn_forward(dict(self.named_parameters()), gb, self.cfg, adj)
 
 
-def _flat(tree, prefix: str = ""):
-    """(dotted path, leaf) pairs of a nest of dicts and lists."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        yield prefix, tree
-        return
-    for k, v in items:
-        yield from _flat(v, f"{prefix}.{k}" if prefix else str(k))
-
-
-def _tensor(a, device):
-    return torch.from_numpy(np.array(a)).to(device)
-
-
-def gcn_params_from_numpy(tree, device=None) -> dict:
-    """The reference's parameter tree ({"layers": [{"w", "b"}, ...]}, any
-    arrays) as the port's flat dict on ``device`` (default: the GPU)."""
-    device = resolve_device(device)
-    return {name: _tensor(a, device) for name, a in _flat(tree)}
-
-
-def opt_state_from_numpy(state, device=None) -> dict:
-    """The reference's AdamW state ({"step", "per_param": tree of {"m",
-    "v"}}) as the port's ({"step", "per_param": {name: {"m", "v"}}})."""
-    device = resolve_device(device)
-    per = {}
-    for path, a in _flat(state["per_param"]):
-        name, moment = path.rsplit(".", 1)
-        per.setdefault(name, {})[moment] = _tensor(a, device)
-    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
-                        device=device)
-    return {"step": step, "per_param": per}
+# the reference tree carried across, under the names earlier callers use
+gcn_params_from_numpy = params_from_numpy

@@ -1,0 +1,155 @@
+"""MACE (Batatia et al., arXiv:2206.07697), port of
+``repro/models/gnn/mace.py``: higher-order equivariant message passing.
+
+Per layer t (node irrep features H[N, C, 9], components ordered l=0,1,2):
+
+  A_i[c, o]  = Σ_{j∈N(i)}  R[e, c] · Σ_{a,b} H_j[c, a] Y_b(r̂_ij) G[a, b, o]
+  B2_i[c, o] = Σ_{a,b} A_i[c,a]  A_i[c,b] G[a,b,o]        (correlation 2)
+  B3_i[c, o] = Σ_{a,b} B2_i[c,a] A_i[c,b] G[a,b,o]        (correlation 3)
+  H'_i[:, o] = Σ_l 1[o∈l] ( W1_l A + W2_l B2 + W3_l B3 )[·, o]  + residual
+
+R[e, c] are per-channel radial weights from an MLP over n_rbf Bessel basis
+functions with a polynomial cutoff envelope; G is the Gaunt coupling
+(``sph.gaunt_tensor``), so every operation is exactly E(3)-equivariant and
+the readout uses only the l=0 components (invariant site energies).
+
+The three-operand contractions are taken two operands at a time, so no
+[E, C, 9, 9] intermediate is built: the message contracts Y with G first
+(``eb,abo->eao``, [E, 9, 9]) and then takes one batched product over ``a``
+per edge; B2 and B3 contract the left factor with G ([N, C, 9, 9]) and then
+sum over ``b`` per node and channel. The sums are the
+reference's in another order. ``cfg.remat`` recomputes each interaction
+layer in the backward (``torch.utils.checkpoint``). Parameters are a flat
+dict named as the reference's tree: ``embed.w`` / ``.b``,
+``layers.{t}.radial.{j}.w`` / ``.b``, ``layers.{t}.w1`` / ``w2`` / ``w3``
+[3, C, C] and ``readout.{j}.w`` / ``.b``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models.gnn.common import GraphBatch, graph_pool
+from repro_torch.models.gnn.sph import LS, N_COMP, gaunt_tensor, real_sph
+from repro_torch.models.params import flatten, unflatten
+
+
+@dataclass(frozen=True)
+class MACEConfig:
+    name: str = "mace"
+    n_layers: int = 2
+    d_hidden: int = 128          # channels
+    l_max: int = 2
+    correlation: int = 3
+    n_rbf: int = 8
+    r_cut: float = 5.0
+    d_feat: int = 64             # input node feature dim
+    dtype: str = "float32"       # message and feature dtype
+    remat: bool = False          # checkpoint each interaction layer
+
+
+def bessel_basis(r: torch.Tensor, n_rbf: int, r_cut: float) -> torch.Tensor:
+    """e(n) = sqrt(2/rc) sin(n pi r / rc) / r with smooth polynomial cutoff."""
+    r = torch.clamp(r, min=1e-6)
+    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
+    basis = np.float32(np.sqrt(2.0 / r_cut)) * torch.sin(
+        n[None, :] * np.pi * r[:, None] / r_cut) / r[:, None]
+    t = torch.clamp(r / r_cut, 0.0, 1.0)
+    env = 1.0 - 10.0 * t ** 3 + 15.0 * t ** 4 - 6.0 * t ** 5
+    return basis * env[:, None]
+
+
+def init_mace(gen: torch.Generator, cfg: MACEConfig) -> dict:
+    c = cfg.d_hidden
+    tree = {"embed": L.dense(gen, cfg.d_feat, c, bias=True),
+            "readout": L.mlp_init(gen, [c, c, 1]), "layers": []}
+    f32 = torch.float32
+    for _ in range(cfg.n_layers):
+        tree["layers"].append({
+            # radial MLP: n_rbf -> c (per-channel radial weight)
+            "radial": L.mlp_init(gen, [cfg.n_rbf, c, c]),
+            # per-l channel mixing for each correlation order
+            "w1": L._dense_init(gen, (3, c, c), f32),
+            "w2": L._dense_init(gen, (3, c, c), f32, scale=0.1 / np.sqrt(c)),
+            "w3": L._dense_init(gen, (3, c, c), f32,
+                                scale=0.01 / np.sqrt(c))})
+    return flatten(tree)
+
+
+def _per_l_mix(w_l: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """feats [N, C, 9], w_l [3, C, C]: channel mixing within each l block."""
+    w_per_comp = w_l[torch.as_tensor(LS, device=w_l.device)]   # [9, C, C]
+    return torch.einsum("nco,odc->ndo", feats, w_per_comp)
+
+
+def _couple(x: torch.Tensor, a: torch.Tensor, g: torch.Tensor):
+    """out[n, c, o] = Σ_{a,b} x[n,c,a] a[n,c,b] G[a,b,o]: x with G as one
+    matmul ([N, C, 9, 9]), then the sum over b as a product and a
+    reduction. (A batched matmul of N·C products of [1, 9] by [9, 9] runs
+    as tiny batched GEMMs, several times slower on the card.)"""
+    n, c, k = x.shape
+    xg = (x.reshape(n * c, k) @ g.reshape(k, k * k)).reshape(n, c, k, k)
+    return (a[..., None] * xg).sum(dim=-2)
+
+
+def mace_forward(params: dict, gb: GraphBatch, cfg: MACEConfig):
+    """Returns (H [N, C, 9], energy [G])."""
+    p = unflatten(params)
+    adt = getattr(torch, cfg.dtype)
+    dev = gb.feats.device
+    g = torch.from_numpy(gaunt_tensor()).to(dev, adt)           # [9, 9, 9]
+    n, c = gb.n_nodes, cfg.d_hidden
+    snd, rcv = gb.senders.long(), gb.receivers.long()
+
+    h0 = F.silu(gb.feats @ p["embed"]["w"] + p["embed"]["b"])
+    H = torch.cat([h0.to(adt)[:, :, None],
+                   h0.new_zeros((n, c, N_COMP - 1), dtype=adt)], dim=2)
+
+    rel = gb.pos[rcv] - gb.pos[snd]
+    r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-18)
+    rbf = bessel_basis(r, cfg.n_rbf, cfg.r_cut)                # [E, n_rbf]
+    y = real_sph(rel / torch.clamp(r, min=1e-6)[:, None])       # [E, 9]
+    # Degenerate edges (self-loops / padding, r ~ 0) have no direction:
+    # Y(0) is not a valid l>0 object (Y20(0) = -c != 0 would inject a
+    # non-rotating pseudo-vector and silently break equivariance), so they
+    # carry only their scalar (l=0) component.
+    l0_only = torch.tensor([1.0] + [0.0] * (N_COMP - 1), dtype=y.dtype,
+                           device=dev)
+    y = torch.where((r > 1e-6)[:, None], y, y * l0_only)
+    y = torch.where(gb.edge_mask[:, None], y, 0.0).to(adt)
+    yg = torch.einsum("eb,abo->eao", y, g)                     # [E, 9, 9]
+
+    def layer(H, lp):
+        radial = L.apply_mlp(lp["radial"], rbf, act="silu").to(adt)
+        # message tensor product (H_j ⊗ Y)_o through the Gaunt coupling
+        msg = torch.bmm(H[snd], yg) * radial[:, :, None]        # [E, C, 9]
+        A = msg.new_zeros((n, c, N_COMP)).index_add(0, rcv, msg)
+        # higher-order (symmetric) products: correlation 2 and 3
+        B2 = _couple(A, A, g)
+        B3 = _couple(B2, A, g)
+        upd = (_per_l_mix(lp["w1"].to(adt), A)
+               + _per_l_mix(lp["w2"].to(adt), B2)
+               + _per_l_mix(lp["w3"].to(adt), B3))
+        return H + upd
+
+    for lp in p["layers"]:
+        if cfg.remat:
+            H = checkpoint(layer, H, lp, use_reentrant=False)
+        else:
+            H = layer(H, lp)
+
+    site_e = L.apply_mlp(p["readout"], H[:, :, 0].to(torch.float32),
+                         act="silu")[:, 0]
+    return H, graph_pool(site_e, gb)
+
+
+def mace_loss(params: dict, gb: GraphBatch, cfg: MACEConfig):
+    _, energy = mace_forward(params, gb, cfg)
+    target = gb.labels[:gb.n_graphs].to(torch.float32)
+    loss = torch.mean((energy - target) ** 2)
+    return loss, {"mse": loss}

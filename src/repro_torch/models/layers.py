@@ -1,5 +1,6 @@
-"""Shared functional layers (port of ``repro/models/layers.py``): what GCN
-uses, the dense layer and the masked cross-entropy.
+"""Shared functional layers (port of ``repro/models/layers.py``): what the
+GNN and recsys models use, the dense layer, the plain MLP and the masked
+cross-entropy.
 
 Pure functions over dicts of tensors. Initial values come from an explicit
 ``torch.Generator``: they follow the reference's distributions, not its
@@ -34,6 +35,32 @@ def apply_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def mlp_init(gen: torch.Generator, sizes, dtype=torch.float32) -> list:
+    """Plain MLP used by GNN and recsys heads, sizes = [d0, d1, ..., dk]:
+    a list of {"w", "b"} dense layers."""
+    return [dense(gen, sizes[i], sizes[i + 1], dtype, bias=True)
+            for i in range(len(sizes) - 1)]
+
+
+_ACTS = {"relu": torch.relu,
+         "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+         "silu": torch.nn.functional.silu, "tanh": torch.tanh,
+         "sigmoid": torch.sigmoid}
+
+
+def apply_mlp(params: list, x: torch.Tensor, act: str = "relu",
+              final_act: str | None = None) -> torch.Tensor:
+    """``act`` between the layers, ``final_act`` (if any) after the last."""
+    a = _ACTS[act]
+    for i, p in enumerate(params):
+        x = apply_dense(p, x)
+        if i < len(params) - 1:
+            x = a(x)
+        elif final_act is not None:
+            x = _ACTS[final_act](x)
+    return x
 
 
 def softmax_xent(logits, labels, mask=None) -> torch.Tensor:

@@ -6,7 +6,7 @@ float32 arithmetic step by step (``bc1 = 1 - b1**t`` with ``t`` a float32
 tensor, ``denom = sqrt(v / bc2) + eps``, ``upd = m_hat / denom + wd * p``),
 which ``torch.optim.AdamW`` does not (it decays the weights apart and adds
 ``eps`` elsewhere). The factored (Adafactor-style) second moment raises
-until the LM slice (ROADMAP A10) needs it.
+until ROADMAP A10 (e) ports it.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ class OptConfig:
     grad_clip: float = 1.0
     moment_dtype: str = "float32"
     factored: bool = False
+    # microbatch gradient-accumulation dtype (``configs.base.make_step``)
+    accum_dtype: str = "float32"
 
     @property
     def mdt(self) -> torch.dtype:
@@ -34,7 +36,7 @@ class OptConfig:
 def _no_factored(cfg: OptConfig) -> None:
     if cfg.factored:
         raise NotImplementedError(
-            "factored AdamW is not ported yet (ROADMAP A10, the LM slice)")
+            "factored AdamW is not ported yet (ROADMAP A10 (e))")
 
 
 def init_opt_state(params: dict[str, torch.Tensor], cfg: OptConfig) -> dict:

@@ -24,9 +24,11 @@ from repro_torch.benchmarks import (analytics_bench, dist2d_teps,
                                     fig3_teps, sssp_teps, table2_switching,
                                     table3_maxpos, table4_counters)
 from repro_torch.configs.reduced import reduce_arch
-from repro_torch.data.pipeline import gnn_batch
+from repro_torch.data.pipeline import gnn_batch, recsys_batch
+from repro_torch.examples import gnn_neighbor_sampling
 from repro_torch.launch import bfs as launch_bfs
 from repro_torch.launch import serve_bfs as launch_serve_bfs
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models.gnn.gcn import gcn_params_from_numpy
 from repro_torch.train.trainer import Trainer
@@ -90,7 +92,13 @@ def test_port_files_are_found():
             "examples/__init__.py", "examples/quickstart.py",
             "examples/weighted_sssp.py", "examples/graph_analytics.py",
             "examples/serve_analytics.py", "examples/sweep_trace.py",
-            "examples/distributed_bfs.py"} <= names
+            "examples/distributed_bfs.py", "models/params.py",
+            "models/gnn/gin.py", "models/gnn/egnn.py", "models/gnn/mace.py",
+            "models/gnn/sph.py", "models/recsys/__init__.py",
+            "models/recsys/dien.py", "configs/gin_tu.py",
+            "configs/egnn_arch.py", "configs/mace_arch.py",
+            "configs/dien_arch.py", "launch/serve.py",
+            "examples/gnn_neighbor_sampling.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -180,6 +188,18 @@ def test_training_entry_points_raise_without_gpu(no_gpu):
         gnn_batch(arch, arch.shape("full_graph_sm"), 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gcn_params_from_numpy({"layers": [{"w": np.zeros((2, 2))}]})
+    dien = reduce_arch("dien")
+    for arch_id, shape_id in (("gin-tu", "molecule"), ("egnn", "molecule"),
+                              ("mace", "molecule"),
+                              ("dien", "train_batch")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(reduce_arch(arch_id), shape_id)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recsys_batch(dien, dien.shape("serve_p99"), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "dien", "--reduced", "--requests", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn_neighbor_sampling.main([])
 
 
 def test_explicit_cpu_still_runs(no_gpu):

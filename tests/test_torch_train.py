@@ -171,7 +171,7 @@ def test_launcher_runs_reduced_on_cpu(tmp_path, capsys):
 
 
 def test_registry_and_unported_paths_raise():
-    assert list_archs() == ["gcn-cora"]
+    assert list_archs() == ["dien", "egnn", "gcn-cora", "gin-tu", "mace"]
     arch = get_arch("gcn-cora")
     assert arch.model_cfg.n_layers == 2 and arch.model_cfg.d_hidden == 16
     shape = arch.shape("ogb_products")
@@ -180,6 +180,17 @@ def test_registry_and_unported_paths_raise():
     params = init_fn(torch.Generator().manual_seed(0))
     assert params["layers.0.w"].shape == (100, 16)
     assert params["layers.1.w"].shape == (16, 47)
+    gin = get_arch("gin-tu")
+    assert gin.model_cfg.n_layers == 5 and gin.model_cfg.d_hidden == 64
+    params = param_builders(gin, shape)[0](torch.Generator().manual_seed(0))
+    assert params["mlps.0.0.w"].shape == (100, 64)
+    assert params["heads.4.w"].shape == (64, 47)
+    assert get_arch("mace").model_cfg.dtype == "bfloat16"
+    assert get_arch("egnn").model_cfg.n_layers == 4
+    dien = get_arch("dien")
+    assert dien.microbatches == 8 and dien.opt.accum_dtype == "float32"
+    assert [s.kind for s in dien.shapes] == ["train", "serve", "serve",
+                                             "retrieval"]
     b = gnn_batch(reduce_arch("gcn-cora"), reduce_arch("gcn-cora").shape(
         "molecule"), 3, seed=1, device="cpu")
     assert b.n_graphs == 4 and b.feats.shape == (40, 8)
@@ -188,6 +199,8 @@ def test_registry_and_unported_paths_raise():
         param_builders(lm)
     with pytest.raises(NotImplementedError, match="A10"):
         make_step(arch, Shape("s", "serve", {}))
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_step(dien, Shape("p", "prefill", {}))
     with pytest.raises(NotImplementedError, match="A10"):
         make_batch(lm, lm.shapes[0], 0, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
