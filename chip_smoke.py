@@ -88,6 +88,27 @@ phase prints one JSON line:
            against 1,000,000 items; its top 100 against float64 scores);
            ms and peak memory of each part, and where a train_batch step
            goes (one microbatch's forward and backward, the profiler);
+  lm       the LMs (no port kernel on this path: attention, RoPE, the
+           norms, SwiGLU and the MoE dispatch are PyTorch ops, as the
+           reference's are XLA ops): phi4-mini-3.8b (8 requests x 2,048
+           prompt tokens x 64 new, naive attention) and
+           granite-moe-1b-a400m (1 x 32,768 x 16: prefill_32k's length,
+           its batch cut from 32 to 1; blockwise attention, two MoE token
+           chunks) at full width in bfloat16 through launch.serve's
+           serve_lm, twice (the same tokens), from finite logits; the
+           prefill's logits against lm_forward's last row, the first
+           decode step's against lm_forward over the prompt and that token
+           (granite at a 4,096-token prompt), within LM_BF16_TOL; prefill
+           ms, decode ms a token, tokens/s, peak memory; then each of the
+           five reduced LMs on the card against the CPU from the same
+           parameters (prefill, two decode steps, gradients and a train
+           step within LM_F32_TOL, TF32 off; float32 KV caches within
+           LM_F32_TOL; a float8 cache's bytes equal the CPU's but where a
+           value takes the adjacent code (its float32 input differs in the
+           last bits), and equal to the card's float32 keys and values
+           cast on the CPU), 3 Trainer steps each, a kill-and-resume of
+           qwen3-moe-30b-a3b-reduced (exact), to_float8_e4m3fn bit-equal
+           to the CPU's, and no port kernel launched;
   figures  the paper's figure scripts (repro_torch.benchmarks) on the
            graph: Table 2's switching trace of the probe root's BFS (each
            direction checked against the switch rule, v_f summing to the
@@ -287,6 +308,7 @@ from repro_torch.core.bottomup import (_fallback_scan,  # noqa: E402
                                        bottomup_simd_step)
 from repro_torch.configs.base import (effective_cfg, get_arch,  # noqa: E402
                                       make_step, param_builders)
+from repro_torch.configs.reduced import reduce_arch  # noqa: E402
 from repro_torch.core.csr import CSRGraph, ell_pad, to_numpy_adj  # noqa: E402
 from repro_torch.core.dist2d import (  # noqa: E402
     dist2d_msbfs_engine_drain, dist2d_msbfs_engine_enqueue,
@@ -316,8 +338,8 @@ from repro_torch.core.packed import (LANE_WORD_BITS,  # noqa: E402
                                      unpack_lanes, word_dtype)
 from repro_torch.core.ref import bfs_reference  # noqa: E402
 from repro_torch.core.topdown import topdown_step  # noqa: E402
-from repro_torch.data.pipeline import (gnn_batch, make_batch,  # noqa: E402
-                                       recsys_batch)
+from repro_torch.data.pipeline import (gnn_batch, lm_batch,  # noqa: E402
+                                       make_batch, recsys_batch)
 from repro_torch.distributed.ranks import (load_graph,  # noqa: E402
                                            rank_device, run_ranks,
                                            save_graph)
@@ -359,7 +381,11 @@ from repro_torch.examples import gnn_neighbor_sampling  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.gnn.gcn import gcn_loss  # noqa: E402
 from repro_torch.models.gnn.gin import gin_loss  # noqa: E402
+from repro_torch.models.layers import ATTN_CHUNK_THRESHOLD  # noqa: E402
 from repro_torch.models.recsys.dien import dien_user_state  # noqa: E402
+from repro_torch.models.transformer import (lm_decode_step,  # noqa: E402
+                                            lm_forward, lm_prefill,
+                                            to_float8_e4m3fn)
 from repro_torch.obs import (ObservabilityServer, SLOConfig,  # noqa: E402
                              SweepRecorder, Telemetry, diagnose_log,
                              records_from_jsonl)
@@ -431,6 +457,26 @@ ZOO_STEPS = 3
 # squares of its gradients passes float32's range (norm_overflow_witness)
 NORM_OVERFLOWS = {("egnn", "minibatch_lg")}
 DIEN_STEPS = 3
+# the lm phase: (arch, requests, prompt_len, new_tokens, the prompt length
+# of the decode-against-forward check) served at full width. granite runs
+# prefill_32k's sequence length with its batch cut from 32 to 1 (a 32-way
+# batch's cache alone is 51.5 GB); its decode check runs at a 4,096-token
+# prompt, since a 32,769-token forward breaks the blockwise attention's
+# chunk divisibility
+LM_SERVE = (("phi4-mini-3.8b", 8, 2048, 64, 2048),
+            ("granite-moe-1b-a400m", 1, 32768, 16, 4096))
+LM_ARCHS = ("phi4-mini-3.8b", "qwen1.5-32b", "llama3-405b",
+            "granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
+LM_STEPS = 3
+# bfloat16 full width: serve path against lm_forward, max |a - b| over
+# max |b| of the logits (other kernels and sums, rounded to bfloat16's
+# 8-bit mantissa at every layer); float32 reduced configs, card against
+# the CPU
+LM_BF16_TOL = 5e-2
+LM_F32_TOL = 1e-4
+# an MoE's decode step against the forward in float32 at full width (24
+# layers of sums in other orders, no drop)
+LM_F32_DECODE_TOL = 1e-3
 LANES = 64
 SSSP_LANES = 32
 SWEEP_TIMED_ROW = 20  # sssp_layers times relax_fallback in full from here
@@ -1994,24 +2040,8 @@ def step_breakdown(arch, shape_id, dev, reps: int = 3):
     del grads, got, leaves, loss
     out["step_ms"] = wall_ms(lambda: step(params, opt_state, batch), reps)
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # the device's own events (kernels, copies, fills): each once
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
-    out.update(profiled_step_ms=wall, device_busy_ms=busy,
-               device_busy_share=busy / wall if busy else None,
-               top_device_ms=[dict(name=e.key[:80], count=e.count,
-                                   ms=e.self_device_time_total / 1e3)
-                              for e in top])
+    prof = profiled(lambda: step(params, opt_state, batch))
+    out.update(profiled_step_ms=prof.pop("wall_ms"), **prof)
     return out, (params, opt_state, step, batch)
 
 
@@ -2091,6 +2121,354 @@ def run_dien(dev, smi):
          candidates=shape.dims["n_candidates"],
          step_ms=wall_ms(lambda: step(params, batch), 5),
          peak_mem_bytes=peak, top1=int(top[0, 0]))
+
+
+def served(arch, requests, prompt_len, new_tokens, dev):
+    """launch.serve.serve_lm at full width with its stats, its peak memory
+    over what was allocated before, and its checks: int32 tokens
+    [requests, new_tokens] on the GPU, from finite logits."""
+    stats = {}
+    tokens, wall, peak = peak_of(lambda: quiet(
+        launch_serve.serve_lm, arch, requests, prompt_len, new_tokens, SEED,
+        dev, stats))
+    check(tokens.device.type == "cuda"
+          and tuple(tokens.shape) == (requests, new_tokens)
+          and tokens.dtype == torch.int32,
+          f"serve_lm on {arch.arch_id} returned {tuple(tokens.shape)} "
+          f"{tokens.dtype} on {tokens.device}")
+    check(stats["logits_finite"],
+          f"serve_lm on {arch.arch_id}: a step's logits are not finite")
+    return tokens.cpu(), dict(
+        entry_ms=wall, prefill_ms=stats["prefill_s"] * 1e3,
+        decode_ms_per_token=stats["decode_s"] * 1e3 / max(new_tokens - 1, 1),
+        tokens_per_s=requests * new_tokens / stats["seconds"],
+        peak_mem_bytes=peak)
+
+
+@torch.inference_mode()
+def lm_consistency(arch, requests, prompt_len, decode_prompt_len, dev):
+    """The serve path against lm_forward at full width, on serve_lm's own
+    parameters and prompts: the prefill's logits against the forward's last
+    row over the prompt; the first decode step's logits (after the prefill
+    of the first ``decode_prompt_len`` prompt tokens and its greedy token)
+    against the forward's last row over those tokens and that one. Each as
+    max |a - b| over max |b|; the prefill within LM_BF16_TOL, a dense
+    model's decode step too. Also the prefill and one decode step under
+    the profiler (``profiled``).
+
+    An MoE's decode step differs from the forward in two ways that are
+    not faults. It routes B tokens, whose capacity (at least 8 an expert)
+    never binds, while the forward over B * (decode_prompt_len + 1) tokens
+    drops the assignments past an expert's capacity, the last tokens'
+    first (they come last in the stable sort). And top-k routing is not
+    continuous: bfloat16's rounding noise between two computations can
+    swap an expert at the k-th place in some layer. So the MoE decode
+    check runs in float32 (parameters and activations) against a forward
+    at a capacity factor of E / k, where no assignment drops, within
+    LM_F32_DECODE_TOL; the bfloat16 differences are measured beside it,
+    not checked."""
+    cfg = arch.model_cfg
+    params, toks = launch_serve.lm_serve_inputs(arch, requests, prompt_len,
+                                                SEED, dev)
+    logits_p, cache = lm_prefill(params, toks, cfg)
+    del cache
+    prof = dict(prefill=profiled(lambda: lm_prefill(params, toks, cfg)))
+    full, _ = lm_forward(params, toks, cfg)
+    out = dict(prefill_rel_diff=rel_diff(logits_p.float(),
+                                         full[:, -1].float()))
+    del full
+    toks = toks[:, :decode_prompt_len]
+    logits_d, seq, cache = first_decode(params, toks, cfg)
+    prof["decode_step"] = profiled(lambda: lm_decode_step(
+        params, seq[:, -1:], cache, decode_prompt_len, cfg))
+    del cache
+    if cfg.moe is not None:
+        # bfloat16, unchecked: at the config's capacity, and with no drop
+        full, _ = lm_forward(params, seq, cfg)
+        out["decode_rel_diff_bf16_at_capacity"] = rel_diff(
+            logits_d.float(), full[:, -1].float())
+        del full
+        cfg = no_drop(cfg)
+        full, _ = lm_forward(params, seq, cfg)
+        out["decode_rel_diff_bf16"] = rel_diff(logits_d.float(),
+                                               full[:, -1].float())
+        del full
+        # checked: float32 activations and parameters, no drop
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+        params = {k: v.float() for k, v in params.items()}
+        logits_d, seq, cache = first_decode(params, toks, cfg)
+        del cache
+        tol = LM_F32_DECODE_TOL
+    else:
+        tol = LM_BF16_TOL
+    full, _ = lm_forward(params, seq, cfg)
+    out.update(decode_prompt_len=decode_prompt_len, decode_dtype=cfg.dtype,
+               decode_tolerance=tol,
+               decode_rel_diff=rel_diff(logits_d.float(),
+                                        full[:, -1].float()))
+    check(out["prefill_rel_diff"] <= LM_BF16_TOL
+          and out["decode_rel_diff"] <= tol,
+          f"{arch.arch_id}: the serve path differs from lm_forward: {out}")
+    out["profile"] = prof
+    return out
+
+
+def first_decode(params, toks, cfg):
+    """Prefill of ``toks`` into a cache with one free slot, its greedy
+    token, and the decode step on it: (its logits, the prompt and that
+    token, the cache)."""
+    logits_p, cache = lm_prefill(params, toks, cfg,
+                                 max_len=toks.shape[1] + 1)
+    nxt = torch.argmax(logits_p, -1).to(torch.int32)[:, None]
+    logits_d, cache = lm_decode_step(params, nxt, cache, toks.shape[1], cfg)
+    return logits_d, torch.cat([toks, nxt], 1), cache
+
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity factor of E / k: capacity T an expert,
+    so no assignment drops."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` (its caller has just run the same work: warm)
+    under torch.profiler: its wall ms (ending in a device sync), the
+    device's busy ms (its own events' summed time: kernels, copies, fills,
+    each once) and share of the wall, the device event count, and the six
+    largest device times by name (none when the profiler sees no device
+    events)."""
+    torch.cuda.synchronize()
+    # the device's activity alone: a host trace of a prefill's 80,000
+    # launches costs the script about a minute to record and fold
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                device_busy_share=busy / wall if busy else None,
+                device_events=sum(e.count for e in events),
+                top_device_ms=[dict(name=e.key[:80], count=e.count,
+                                    ms=e.self_device_time_total / 1e3)
+                               for e in top])
+
+
+def lm_reduced_vs_cpu(arch_id, dev):
+    """A reduced LM (float32, TF32 off) on the card against the CPU from
+    the same parameters (drawn on the CPU), on lm_batch's batches: the
+    prefill step's logits and two decode steps' (the cache grown by 2, the
+    prompt's first two tokens decoded),
+    each within LM_F32_TOL of the CPU's largest magnitude; the float32
+    caches within LM_F32_TOL, the float8 ones by ``fp8_cache_check``; one
+    step's gradients within LM_F32_TOL of each CPU tensor's largest
+    magnitude, then one make_step train step: loss and grad_norm within
+    LM_F32_TOL, each parameter within LM_F32_TOL of its largest magnitude
+    where the CPU's first moment shows a gradient above 1e-6 or exactly 0
+    (Adam's first update lr * g / (|g| + eps) is fixed there; between,
+    within 2 lr)."""
+    arch = reduce_arch(arch_id)
+    cfg = arch.model_cfg
+    init_fn, loss_fn = param_builders(arch)
+    cpu = init_fn(torch.Generator().manual_seed(SEED))
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    out = dict(arch=arch.arch_id, cache_dtype=str(cfg.cache_dtype))
+    runs = {}
+    for where, params in (("cpu", cpu), ("card", card)):
+        d = next(iter(params.values())).device
+        pf, dc = arch.shape("prefill_32k"), arch.shape("decode_32k")
+        toks = lm_batch(arch, pf, 0, SEED, device=d)["tokens"]
+        logits, cache = make_step(arch, pf)(params, {"tokens": toks})
+        cache = tuple(torch.cat([c, torch.zeros_like(c[:, :, :2])], 2)
+                      for c in cache)
+        seq = [logits]
+        for i in range(2):
+            # the decoded tokens: the prompt's first two, on both devices
+            logits, cache = make_step(arch, dc)(params, {
+                "token": toks[:, i:i + 1], "cache_k": cache[0],
+                "cache_v": cache[1],
+                "cache_len": torch.tensor(toks.shape[1] + i,
+                                          dtype=torch.int32, device=d)})
+            seq.append(logits)
+        tr = arch.shape("train_4k")
+        batch = lm_batch(arch, tr, 0, SEED, device=d)
+        loss, grads = loss_grads(loss_fn, params, batch)
+        opt = init_opt_state(params, arch.opt)
+        new_p, new_opt, m = make_step(arch, tr)(params, opt, batch)
+        runs[where] = dict(logits=[x.cpu() for x in seq],
+                           cache=[c.cpu() for c in cache], loss=loss.cpu(),
+                           grads=[g.cpu() for g in grads],
+                           params={k: v.cpu() for k, v in new_p.items()},
+                           opt=new_opt, metrics={k: v.cpu() for k, v in
+                                                 m.items()})
+    a, b = runs["card"], runs["cpu"]
+    out["serve_rel_diff"] = [rel_diff(x, y) for x, y in
+                             zip(a["logits"], b["logits"])]
+    if cfg.cache_dtype == torch.float8_e4m3fn:
+        out.update(fp8_cache_check(arch, card, a["cache"], b["cache"]))
+    else:
+        out["cache_rel_diff"] = max(rel_diff(x, y) for x, y in
+                                    zip(a["cache"], b["cache"]))
+    out["grad_rel_diff"] = max(rel_diff(x, y) for x, y in
+                               zip(a["grads"], b["grads"]))
+    out["loss_rel_diff"] = rel_diff(a["metrics"]["loss"],
+                                    b["metrics"]["loss"])
+    out["grad_norm_rel_diff"] = rel_diff(a["metrics"]["grad_norm"],
+                                         b["metrics"]["grad_norm"])
+    worst, loose = 0.0, 0
+    for name, want in b["params"].items():
+        got = a["params"][name]
+        sure = torch.ones_like(want, dtype=torch.bool)
+        st = b["opt"]["per_param"][name]
+        if "m" in st:
+            g = st["m"].abs() / (1 - arch.opt.b1)
+            sure = (g > 1e-6) | (g == 0)
+        err = (got - want).abs()
+        if bool(sure.any()):
+            worst = max(worst, float(err[sure].max())
+                        / max(float(want.abs().max()), 1e-30))
+        check(bool((err[~sure] <= 2 * arch.opt.lr).all()),
+              f"{arch.arch_id}: {name} moved more than 2 lr apart")
+        loose += int((~sure).sum())
+    out.update(param_rel_diff=worst, params_near_zero_gradient=loose)
+    check(max(out["serve_rel_diff"] + [out["grad_rel_diff"], worst,
+                                       out["loss_rel_diff"],
+                                       out["grad_norm_rel_diff"],
+                                       out.get("cache_rel_diff", 0.0)])
+          <= LM_F32_TOL, f"{arch.arch_id} on the card differs from the CPU: "
+                         f"{out}")
+    return out
+
+
+def fp8_cache_check(arch, card, got, want) -> dict:
+    """A float8 KV cache on the card (``got``) against the CPU's
+    (``want``). The two devices' float32 keys and values differ in their
+    last bits, so a value near a float8 rounding midpoint may take the
+    adjacent float8 code: every differing byte must be such a neighbour
+    (same sign, code one apart). The cast itself is held bit-equal: the
+    card's prefill cache equals the card's float32 keys and values (the
+    same prefill with a float32 cache) cast on the CPU."""
+    bad = 0
+    differ = 0
+    for x, y in zip(got, want):
+        gx = x.view(torch.uint8).to(torch.int32)
+        gy = y.view(torch.uint8).to(torch.int32)
+        d = gx != gy
+        differ += int(d.sum())
+        bad += int((d & (((gx - gy).abs() > 1) | ((gx ^ gy) >= 0x80))).sum())
+    check(bad == 0, f"{arch.arch_id}: {bad} float8 cache bytes differ "
+                    f"between the card and the CPU by more than one code")
+    f32 = dataclasses.replace(arch, model_cfg=dataclasses.replace(
+        arch.model_cfg, kv_cache_dtype=None))
+    pf = arch.shape("prefill_32k")
+    toks = lm_batch(arch, pf, 0, SEED,
+                    device=next(iter(card.values())).device)["tokens"]
+    _, c8 = make_step(arch, pf)(card, {"tokens": toks})
+    _, c32 = make_step(f32, pf)(card, {"tokens": toks})
+    cast_equal = all(
+        torch.equal(x.view(torch.uint8).cpu(),
+                    to_float8_e4m3fn(y.cpu()).view(torch.uint8))
+        for x, y in zip(c8, c32))
+    check(cast_equal, f"{arch.arch_id}: the card's float8 cache is not its "
+                      f"float32 keys and values cast as on the CPU")
+    return dict(cache_bytes=sum(x.numel() for x in got),
+                cache_bytes_adjacent_code=differ, cast_bit_equal=cast_equal)
+
+
+def lm_kill_resume(dev):
+    """qwen3-moe-30b-a3b-reduced on the card: 4 Trainer steps in one run
+    against 2, a restore and 2 more; every parameter bit-equal."""
+    arch = reduce_arch("qwen3-moe-30b-a3b")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        def trainer(steps, sub, every):
+            return Trainer(arch, "train_4k", cfg=TrainerConfig(
+                steps=steps, ckpt_every=every, log_every=1, seed=SEED,
+                ckpt_dir=os.path.join(tmp, sub)))
+        a = trainer(4, "a", 100)
+        log_a = quiet(a.run)
+        quiet(trainer(2, "b", 2).run)
+        b = trainer(4, "b", 100)
+        log_b = quiet(b.run)
+    check(log_b[0]["step"] == 3, "the resumed LM run did not restart at 3")
+    exact = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    check(exact and log_a[-1]["loss"] == log_b[-1]["loss"],
+          f"{arch.arch_id}: kill-and-resume on the card is not exact")
+    return dict(arch=arch.arch_id, steps=4, final_loss=log_a[-1]["loss"],
+                exact=exact)
+
+
+def fp8_cast_vs_cpu(dev) -> int:
+    """to_float8_e4m3fn on the card against the CPU on the same float32
+    and bfloat16 values over +-1000 (densely around 448-480): bit-equal.
+    Returns the number of values."""
+    x = torch.cat([torch.linspace(-1000, 1000, 200001),
+                   torch.linspace(440, 490, 50001),
+                   -torch.linspace(440, 490, 50001),
+                   torch.tensor([464.0, -464.0, INF, -INF, 0.0, -0.0])])
+    for dt in (torch.float32, torch.bfloat16):
+        got = to_float8_e4m3fn(x.to(dev, dt)).view(torch.uint8).cpu()
+        want = to_float8_e4m3fn(x.to(dt)).view(torch.uint8)
+        check(torch.equal(got, want),
+              f"to_float8_e4m3fn differs between the card and the CPU on "
+              f"{dt}")
+    return x.numel()
+
+
+def run_lm(dev, smi):
+    """The lm phase: phi4-mini-3.8b and granite-moe-1b-a400m served at full
+    width through launch.serve.serve_lm (twice: the same tokens), the
+    serve path against lm_forward, the five reduced LMs on the card
+    against the CPU and in the Trainer, and one kill-and-resume."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    common.reset_launches()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for float32 matmuls")
+    for arch_id, requests, prompt_len, new_tokens, decode_len in LM_SERVE:
+        t1 = time.perf_counter()
+        arch = get_arch(arch_id)
+        tokens, first = served(arch, requests, prompt_len, new_tokens, dev)
+        again, warm = served(arch, requests, prompt_len, new_tokens, dev)
+        check(torch.equal(tokens, again),
+              f"serve_lm on {arch_id} gave other tokens the second time")
+        agree = lm_consistency(arch, requests, prompt_len, decode_len, dev)
+        cfg = arch.model_cfg
+        emit("lm", part="serve", card=smi, arch=arch_id,
+             entry="repro_torch.launch.serve.serve_lm",
+             dtype=cfg.dtype, params=cfg.param_count(), requests=requests,
+             prompt_len=prompt_len, new_tokens=new_tokens,
+             attention="chunked" if prompt_len > ATTN_CHUNK_THRESHOLD
+             else "naive", repeat_equal=True, first_run=first, **warm,
+             tolerance=LM_BF16_TOL, **agree,
+             seconds=time.perf_counter() - t1)
+        torch.cuda.empty_cache()
+    reduced = []
+    for arch_id in LM_ARCHS:
+        t1 = time.perf_counter()
+        rec = lm_reduced_vs_cpu(arch_id, dev)
+        tr, run = trainer_run(reduce_arch(arch_id), "train_4k", LM_STEPS,
+                              dev)
+        del tr
+        rec.update(trainer=dict(steps=LM_STEPS, losses=run["losses"],
+                                grad_norms=run["grad_norms"],
+                                step_ms=run["step_ms"]))
+        emit("lm", part="reduced", card=smi, tolerance=LM_F32_TOL, **rec,
+             seconds=time.perf_counter() - t1)
+        reduced.append(rec["arch"])
+    resume = lm_kill_resume(dev)
+    values = fp8_cast_vs_cpu(dev)
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    check(not launches, f"the LM paths launched port kernels: {launches}")
+    emit("lm", part="summary", card=smi, reduced=reduced,
+         kill_resume=resume, fp8_cast_bit_equal_values=values,
+         kernel_launches=launches, seconds=time.perf_counter() - t0)
 
 
 def quiet(fn, *args, **kwargs):
@@ -4074,6 +4452,7 @@ def main(argv=None) -> int:
     gin = run_gnn_zoo(dev, smi, max(args.reps // 4, 3), flush)
     del flush
     run_dien(dev, smi)
+    run_lm(dev, smi)
 
     figure_tables(g, args, states)
     figure3(g, args)

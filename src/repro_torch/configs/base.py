@@ -2,11 +2,15 @@
 ``repro/configs/base.py``).
 
 Every ported architecture registers an ``Arch`` here; the trainer, the
-launcher and the tests read this one interface. Ported so far: the four
-GNNs (``gcn-cora``, ``gin-tu``, ``egnn``, ``mace``) and DIEN (``dien``),
-with the train step (gradient accumulation over microbatches too), the
-serve step and the retrieval step. The LM families and their prefill and
-decode steps raise ``NotImplementedError`` until ROADMAP A10 (d).
+launcher and the tests read this one interface: the five LMs
+(``phi4-mini-3.8b``, ``qwen1.5-32b``, ``llama3-405b``,
+``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``), the four GNNs
+(``gcn-cora``, ``gin-tu``, ``egnn``, ``mace``) and DIEN (``dien``), with
+the train step (gradient accumulation over microbatches too), the LM
+prefill and decode steps, the GNN forward-only serve step, and DIEN's serve
+and retrieval steps. The reference's shape and spec builders for its
+dry-run (``param_shapes``, ``input_specs``, ``step_arg_specs``) are not
+ported (ROADMAP A10 (f)).
 """
 from __future__ import annotations
 
@@ -20,14 +24,13 @@ import torch
 from repro_torch.optim.adamw import (OptConfig, adamw_update,
                                      clip_by_global_norm)
 
-_NOT_PORTED = "not ported yet (ROADMAP A10 (d))"
-
 
 @dataclass(frozen=True)
 class Shape:
     shape_id: str
     kind: str                  # train | prefill | decode | serve | retrieval
     dims: dict
+    skip_reason: str | None = None
 
 
 @dataclass(frozen=True)
@@ -82,7 +85,8 @@ def effective_cfg(arch: Arch, shape: Shape | None):
 
 
 # model config class -> (module under repro_torch.models, init, loss)
-_MODELS = {"GCNConfig": ("gnn.gcn", "init_gcn", "gcn_loss"),
+_MODELS = {"LMConfig": ("transformer", "init_lm", "lm_loss"),
+           "GCNConfig": ("gnn.gcn", "init_gcn", "gcn_loss"),
            "GINConfig": ("gnn.gin", "init_gin", "gin_loss"),
            "EGNNConfig": ("gnn.egnn", "init_egnn", "egnn_loss"),
            "MACEConfig": ("gnn.mace", "init_mace", "mace_loss"),
@@ -92,11 +96,7 @@ _MODELS = {"GCNConfig": ("gnn.gcn", "init_gcn", "gcn_loss"),
 def param_builders(arch: Arch, shape: Shape | None = None):
     """Returns (init_fn(generator) -> params, loss_fn(params, batch))."""
     cfg = effective_cfg(arch, shape)
-    name = type(cfg).__name__
-    if name not in _MODELS:
-        raise NotImplementedError(
-            f"{arch.family} model {name} is {_NOT_PORTED}")
-    path, init, loss = _MODELS[name]
+    path, init, loss = _MODELS[type(cfg).__name__]
     mod = importlib.import_module(f"repro_torch.models.{path}")
     init, loss = getattr(mod, init), getattr(mod, loss)
     return (lambda g: init(g, cfg)), (lambda p, b: loss(p, b, cfg))
@@ -119,10 +119,18 @@ def make_step(arch: Arch, shape: Shape) -> Callable:
                sum of the k microbatches' gradients over k, accumulated in
                ``opt.accum_dtype`` in microbatch order, and the metrics are
                the mean loss and the grad norm, as the reference's;
-    serve:     step(params, batch) -> CTR probabilities [B] (recsys);
+    prefill:   step(params, batch) -> (last token's logits [B, V], cache),
+               from ``batch["tokens"]`` (LM);
+    decode:    step(params, batch) -> (logits [B, V], cache): one token
+               ``batch["token"]`` [B, 1] written into the cache
+               (``batch["cache_k"]``, ``batch["cache_v"]``) at slot
+               ``batch["cache_len"]``, in place (LM);
+    serve:     step(params, batch) -> CTR probabilities [B] (recsys), or
+               the loss's metrics of a forward pass (GNN);
     retrieval: step(params, batch) -> top-100 candidate ids [B, 100].
 
-    Serve and retrieval steps run under ``torch.inference_mode()``.
+    Prefill, decode, serve and retrieval steps run under
+    ``torch.inference_mode()``.
     """
     cfg = effective_cfg(arch, shape)
     _, loss_fn = param_builders(arch, shape)
@@ -165,15 +173,40 @@ def make_step(arch: Arch, shape: Shape) -> Callable:
             return params, opt_state, metrics
         return train_step
 
-    if shape.kind == "serve" and arch.family == "recsys":
-        from repro_torch.models.recsys.dien import dien_forward
+    if shape.kind == "prefill":
+        from repro_torch.models.transformer import lm_prefill
 
         @torch.inference_mode()
-        def serve_step(params, batch):
-            return torch.sigmoid(dien_forward(params, batch, cfg))
-        return serve_step
+        def prefill_step(params, batch):
+            return lm_prefill(params, batch["tokens"], cfg)
+        return prefill_step
 
-    if shape.kind == "retrieval" and arch.family == "recsys":
+    if shape.kind == "decode":
+        from repro_torch.models.transformer import lm_decode_step
+
+        @torch.inference_mode()
+        def decode_step(params, batch):
+            return lm_decode_step(params, batch["token"],
+                                  (batch["cache_k"], batch["cache_v"]),
+                                  batch["cache_len"], cfg)
+        return decode_step
+
+    if shape.kind == "serve":
+        if arch.family == "recsys":
+            from repro_torch.models.recsys.dien import dien_forward
+
+            @torch.inference_mode()
+            def serve_step(params, batch):
+                return torch.sigmoid(dien_forward(params, batch, cfg))
+            return serve_step
+
+        @torch.inference_mode()
+        def fwd_step(params, batch):   # GNN forward-only
+            _, metrics = loss_fn(params, batch)
+            return metrics
+        return fwd_step
+
+    if shape.kind == "retrieval":
         from repro_torch.models.recsys.dien import dien_retrieval
 
         @torch.inference_mode()
@@ -182,5 +215,4 @@ def make_step(arch: Arch, shape: Shape) -> Callable:
             return top
         return retrieval_step
 
-    raise NotImplementedError(f"{shape.kind} steps of {arch.family} are "
-                              f"{_NOT_PORTED}")
+    raise ValueError(shape.kind)

@@ -1,13 +1,13 @@
 """Synthetic but deterministic data pipelines (port of
-``repro/data/pipeline.py``), the GNN and recsys families.
+``repro/data/pipeline.py``) for the three families.
 
 A batch is keyed by (seed, step) alone, so restoring a checkpoint restores
 the exact data stream position: the kill-and-resume checks rely on it.
 GNN batches are drawn on the device they are used on, from a
 ``torch.Generator`` seeded ``seed + 7919 * step`` as the reference keys its
-PRNG. Recsys batches are drawn with numpy exactly as the reference draws
-them (``_fold`` is its copy), so they are the reference's bits, and moved
-to the device in one go.
+PRNG. LM and recsys batches are drawn with numpy exactly as the reference
+draws them (``_fold`` is its copy), so they are the reference's bits, and
+moved to the device in one go.
 """
 from __future__ import annotations
 
@@ -29,6 +29,20 @@ class PipelineState:
 def _fold(seed: int, *vals: int) -> np.random.Generator:
     return np.random.default_rng(np.uint64(abs(hash((seed,) + vals))
                                            % (1 << 63)))
+
+
+def lm_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
+             device=None) -> dict:
+    """The reference's numpy draw of int32 tokens [global_batch, seq_len]
+    (its single host, ``host_id`` 0) on ``device`` (default: the GPU);
+    ``labels`` are the tokens (the loss shifts them)."""
+    d = shape.dims
+    rng = _fold(seed, step, 0)
+    toks = rng.integers(0, arch.model_cfg.vocab,
+                        size=(d["global_batch"], d["seq_len"]),
+                        dtype=np.int32)
+    toks = torch.from_numpy(toks).to(resolve_device(device))
+    return {"tokens": toks, "labels": toks}
 
 
 def gnn_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
@@ -72,9 +86,8 @@ def recsys_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
 
 def make_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
                device=None):
+    if arch.family in ("lm-dense", "lm-moe"):
+        return lm_batch(arch, shape, step, seed, device)
     if arch.family == "gnn":
         return gnn_batch(arch, shape, step, seed, device)
-    if arch.family == "recsys":
-        return recsys_batch(arch, shape, step, seed, device=device)
-    raise NotImplementedError(
-        f"{arch.family} batches are not ported yet (ROADMAP A10 (d))")
+    return recsys_batch(arch, shape, step, seed, device=device)

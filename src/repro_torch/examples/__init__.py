@@ -1,5 +1,5 @@
-"""The examples on the port (port of the reference's ``examples/``, all
-but the two LM scripts): each module runs with ``python -m
+"""The examples on the port (port of the reference's ``examples/``): each
+module runs with ``python -m
 repro_torch.examples.<name>`` on the GPU, or with ``--device cpu`` on the
 plain PyTorch versions, does what the reference's script of the same name
 does at its sizes, keeps its asserts, and returns what it printed from
@@ -14,4 +14,6 @@ does at its sizes, keeps its asserts, and returns what it printed from
   sweep_trace       a recorded replay: Chrome trace and metrics files
   distributed_bfs   dist_bfs on run_ranks over a (2, 2, 2) mesh of 8 ranks
   gnn_neighbor_sampling  GIN trained on fanout-sampled subgraphs
+  train_lm          a reduced LM trained with checkpoints and resume
+  serve_lm          the reduced qwen3-moe served: prefill and greedy decode
 """

@@ -4,10 +4,14 @@
       [--shape ogb_products] [--reduced] [--steps N] [--ckpt-dir D] \
       [--seed S] [--device cpu]
 
-``--arch`` is any registered arch (``configs.base.list_archs()``: dien,
-egnn, gcn-cora, gin-tu, mace). ``--reduced`` runs the small config of
-``configs/reduced.py``; the default shape is the arch's first train shape
-(``full_graph_sm`` for the GNNs, ``train_batch`` for dien).
+``--arch`` is any registered arch (``configs.base.list_archs()``: the
+five LMs phi4-mini-3.8b, qwen1.5-32b, llama3-405b, granite-moe-1b-a400m
+and qwen3-moe-30b-a3b; dien, egnn, gcn-cora, gin-tu, mace).
+``--reduced`` runs the small config of ``configs/reduced.py`` (for an LM:
+2 layers, d_model 64, sequences of 64 tokens); the default shape is the
+arch's first train shape (``train_4k`` for the LMs, ``full_graph_sm`` for
+the GNNs, ``train_batch`` for dien). An LM at full width and ``train_4k``
+(256 sequences of 4,096 tokens) does not fit one card.
 Without ``--device`` the run goes to the GPU and raises when there is none.
 Model parallelism is not ported (ROADMAP A9): ``--model-parallel`` above 1
 raises.

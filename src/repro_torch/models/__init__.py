@@ -1,2 +1,2 @@
-"""Models (port of ``repro.models``): the GNNs (GCN, GIN, EGNN, MACE) and
-DIEN so far."""
+"""Models (port of ``repro.models``): the GNNs (GCN, GIN, EGNN, MACE),
+DIEN, and the decoder LMs with their MoE FFN."""

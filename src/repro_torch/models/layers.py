@@ -1,6 +1,6 @@
-"""Shared functional layers (port of ``repro/models/layers.py``): what the
-GNN and recsys models use, the dense layer, the plain MLP and the masked
-cross-entropy.
+"""Shared functional layers (port of ``repro/models/layers.py``): the dense
+layer, the norms, RoPE, grouped-query attention (naive and blockwise),
+SwiGLU, the plain MLP and the masked cross-entropy.
 
 Pure functions over dicts of tensors. Initial values come from an explicit
 ``torch.Generator``: they follow the reference's distributions, not its
@@ -35,6 +35,188 @@ def apply_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# --------------------------------------------------------------------- norms
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32, cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32, cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., seq, heads, d_head]; positions: [..., seq] int. The two
+    halves of d_head rotate as pairs (not interleaved), in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [d_head/2]
+    ang = positions[..., None].to(torch.float32) * freqs       # [..., s, dh/2]
+    cos = torch.cos(ang)[..., None, :]                         # [..., s, 1, dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+MASKED = -1e30   # the reference's mask value for scores
+
+
+def gqa_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                  kv_len_mask=None, seq_pin: bool = True):
+    """Grouped-query attention, the reference's einsums.
+
+    q: [B, Sq, Hq, Dh]; k, v: [B, Skv, Hkv, Dh]; Hq = G * Hkv.
+    ``q_offset``: absolute position of q[0]; ``kv_len_mask``: optional
+    bool[B, Skv] of valid cache slots. Returns [B, Sq, Hq, Dh].
+
+    The scores are formed in the activation dtype and then taken to
+    float32, the softmax is float32 and its probabilities go back to
+    ``q``'s dtype before the second product, as the reference's. ``seq_pin``
+    only places the scores on a mesh in the reference; on one device it
+    does nothing.
+    """
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    scale = float(1.0 / np.sqrt(dh))
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(
+        torch.float32) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = torch.where((qpos >= kpos)[None, None, None], logits,
+                             MASKED)
+    if kv_len_mask is not None:
+        logits = torch.where(kv_len_mask[:, None, None, None, :], logits,
+                             MASKED)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, hq, dh)
+
+
+def gqa_attention_chunked(q, k, v, *, causal: bool, q_offset: int = 0,
+                          q_chunk: int = 2048, kv_chunk: int = 2048):
+    """Blockwise GQA attention with an online softmax: O(q_chunk x
+    kv_chunk) scores at a time instead of O(Sq x Skv).
+
+    The reference's schedule: for each q block, a pass over the kv blocks
+    that carries the running max, the denominator and the weighted
+    accumulator, all in float32; the scores come out of the first product
+    in float32 (its inputs taken to float32, as the reference asks the dot
+    for a float32 result), the probabilities enter the second product in
+    ``q``'s dtype. Under ``causal``, a kv block that lies wholly after the
+    q block is skipped: there every score is masked, so the reference's
+    pass over it leaves the carry as it was (its probabilities are 0 and
+    its correction 1).
+    """
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    assert sq % q_chunk == 0 and skv % kv_chunk == 0
+    nq, nkv = sq // q_chunk, skv // kv_chunk
+    scale = float(1.0 / np.sqrt(dh))
+
+    # [b, sq, hkv, g, dh] -> [b, hkv, g, sq, dh]
+    qs = q.reshape(b, sq, hkv, g, dh).permute(0, 2, 3, 1, 4)
+    k32 = k.to(torch.float32)
+    outs = []
+    for iq in range(nq):
+        qb = qs[:, :, :, iq * q_chunk:(iq + 1) * q_chunk]
+        qb32 = qb.to(torch.float32)
+        m = torch.full((b, hkv, g, q_chunk), MASKED, dtype=torch.float32,
+                       device=q.device)
+        den = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32,
+                          device=q.device)
+        acc = torch.zeros((b, hkv, g, q_chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        qpos = (iq * q_chunk + q_offset
+                + torch.arange(q_chunk, device=q.device))
+        for j in range(nkv):
+            if causal and j * kv_chunk > iq * q_chunk + q_chunk - 1 + q_offset:
+                break
+            kb = k32[:, j * kv_chunk:(j + 1) * kv_chunk]
+            vb = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+            s = torch.einsum("bhgqd,bkhd->bhgqk", qb32, kb) * scale
+            if causal:
+                kpos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+                s = torch.where((qpos[:, None] >= kpos[None, :])[
+                    None, None, None], s, MASKED)
+            m2 = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m2[..., None])
+            corr = torch.exp(m - m2)
+            den = den * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(q.dtype), vb).to(torch.float32)
+            m = m2
+        out = acc / torch.clamp(den, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))               # [b, hkv, g, qc, dh]
+    out = torch.cat(outs, dim=3)                   # [b, hkv, g, sq, dh]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+
+
+ATTN_CHUNK_THRESHOLD = 8192   # the blockwise path beyond this q length
+
+
+def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv: int, d_head: int, dtype=torch.float32,
+                   qkv_bias: bool = False) -> dict:
+    return {"wq": dense(gen, d_model, n_heads * d_head, dtype, qkv_bias),
+            "wk": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias),
+            "wv": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias),
+            "wo": dense(gen, n_heads * d_head, d_model, dtype)}
+
+
+# --------------------------------------------------------------- SwiGLU MLP
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.float32) -> dict:
+    return {"w1": dense(gen, d_model, d_ff, dtype),
+            "w3": dense(gen, d_model, d_ff, dtype),
+            "w2": dense(gen, d_ff, d_model, dtype)}
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ p["w1"]["w"])
+            * (x @ p["w3"]["w"])) @ p["w2"]["w"]
 
 
 def mlp_init(gen: torch.Generator, sizes, dtype=torch.float32) -> list:

@@ -55,20 +55,32 @@ def _lists(node):
     return out
 
 
+# numpy dtypes torch cannot take directly (the reference's ml_dtypes
+# arrays): carried bit for bit through an integer view of the same width
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _tensor(a, device):
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name in _BITS:
+        bits, dtype = _BITS[a.dtype.name]
+        return torch.from_numpy(a.view(bits)).view(dtype).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree, device=None) -> dict:
-    """The reference's parameter tree (any arrays) as the port's flat dict
-    on ``device`` (default: the GPU)."""
+    """The reference's parameter tree (any arrays, bfloat16 and float8
+    ones bit for bit) as the port's flat dict on ``device`` (default: the
+    GPU)."""
     device = resolve_device(device)
     return {name: _tensor(a, device) for name, a in flat_items(tree)}
 
 
 def opt_state_from_numpy(state, device=None) -> dict:
     """The reference's AdamW state ({"step", "per_param": tree of {"m",
-    "v"}}) as the port's ({"step", "per_param": {name: {"m", "v"}}})."""
+    "v"}}, or "vr" and "vc" in place of "v" where it is factored) as the
+    port's ({"step", "per_param": {name: {"m", "v"}}})."""
     device = resolve_device(device)
     per = {}
     for path, a in flat_items(state["per_param"]):

@@ -1,12 +1,16 @@
-"""AdamW over a flat dict of parameter tensors (port of
-``repro/optim/adamw.py``, full second moment).
+"""AdamW over a flat dict of parameter tensors, and its factored variant
+(port of ``repro/optim/adamw.py``).
 
 Plain functions, no ``torch.optim``: the update repeats the reference's
 float32 arithmetic step by step (``bc1 = 1 - b1**t`` with ``t`` a float32
 tensor, ``denom = sqrt(v / bc2) + eps``, ``upd = m_hat / denom + wd * p``),
 which ``torch.optim.AdamW`` does not (it decays the weights apart and adds
-``eps`` elsewhere). The factored (Adafactor-style) second moment raises
-until ROADMAP A10 (e) ports it.
+``eps`` elsewhere). ``b1 = 0`` keeps no first moment. ``factored=True``
+replaces the full second moment of every tensor whose two trailing
+dimensions are both at least 2 with row and column statistics over those
+two dimensions (Adafactor-style ``vr`` [..., rows] and ``vc`` [...,
+cols]); the stacked ``[n_layers, d]`` norm scales of an LM count as such a
+tensor, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,22 +37,26 @@ class OptConfig:
         return getattr(torch, self.moment_dtype)
 
 
-def _no_factored(cfg: OptConfig) -> None:
-    if cfg.factored:
-        raise NotImplementedError(
-            "factored AdamW is not ported yet (ROADMAP A10 (e))")
+def _is_factorable(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
 
 
 def init_opt_state(params: dict[str, torch.Tensor], cfg: OptConfig) -> dict:
-    """{"step": int32 scalar, "per_param": {name: {"m", "v"}}}, zeros on
-    each parameter's device."""
-    _no_factored(cfg)
+    """{"step": int32 scalar, "per_param": {name: {"m", "v"}}} ("m" only
+    with b1 > 0; "vr", "vc" in place of "v" for a factored tensor), zeros
+    on each parameter's device."""
 
     def one(p):
         st = {}
         if cfg.b1 > 0:
             st["m"] = torch.zeros_like(p, dtype=cfg.mdt)
-        st["v"] = torch.zeros_like(p, dtype=cfg.mdt)
+        if cfg.factored and _is_factorable(p.shape):
+            st["vr"] = torch.zeros(p.shape[:-1], dtype=cfg.mdt,
+                                   device=p.device)
+            st["vc"] = torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                   dtype=cfg.mdt, device=p.device)
+        else:
+            st["v"] = torch.zeros_like(p, dtype=cfg.mdt)
         return st
 
     device = next(iter(params.values())).device if params else None
@@ -73,8 +81,8 @@ def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: dict,
                  cfg: OptConfig):
-    """Returns (new_params, new_state); the inputs are left as they are."""
-    _no_factored(cfg)
+    """Returns (new_params, new_state); the inputs are left as they are.
+    Handles both the full and the factored second moment."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(cfg.b1, t)
@@ -90,9 +98,22 @@ def adamw_update(params: dict[str, torch.Tensor],
             m_hat = m / bc1
         else:
             m_hat = g32
-        v = st["v"].to(torch.float32) * cfg.b2 + g32 * g32 * (1 - cfg.b2)
-        new_st["v"] = v.to(cfg.mdt)
-        denom = torch.sqrt(v / bc2) + cfg.eps
+        if "v" in st:
+            v = st["v"].to(torch.float32) * cfg.b2 + g32 * g32 * (1 - cfg.b2)
+            new_st["v"] = v.to(cfg.mdt)
+            denom = torch.sqrt(v / bc2) + cfg.eps
+        else:
+            g2 = g32 * g32
+            vr = st["vr"].to(torch.float32) * cfg.b2 \
+                + g2.mean(dim=-1) * (1 - cfg.b2)
+            vc = st["vc"].to(torch.float32) * cfg.b2 \
+                + g2.mean(dim=-2) * (1 - cfg.b2)
+            new_st["vr"], new_st["vc"] = vr.to(cfg.mdt), vc.to(cfg.mdt)
+            vr_hat, vc_hat = vr / bc2, vc / bc2
+            v_est = (vr_hat[..., None] * vc_hat[..., None, :]
+                     / torch.clamp(vr_hat.mean(dim=-1)[..., None, None],
+                                   min=1e-30))
+            denom = torch.sqrt(v_est) + cfg.eps
         upd = m_hat / denom + cfg.weight_decay * p.to(torch.float32)
         new_params[name] = (p.to(torch.float32) - cfg.lr * upd).to(p.dtype)
         new_per[name] = new_st

@@ -5,7 +5,9 @@ it (sha256), rename it into place, then publish a manifest holding the hash
 the same way. ``restore`` takes the newest checkpoint whose manifest hash
 verifies, so a preemption mid-write (a torn ``.tmp``) or a corrupted file
 falls back to the previous valid step. A checkpoint stores host copies of
-the tensors under flat ``/``-joined key paths of the state's nested dicts.
+the tensors under flat ``/``-joined key paths of the state's nested dicts;
+a dtype numpy lacks (bfloat16, float8) is stored as its bits in an
+unsigned integer of the same width.
 """
 from __future__ import annotations
 
@@ -36,6 +38,23 @@ def _unflatten_like(state_like, leaves):
     return next(leaves)
 
 
+_BITS = {torch.bfloat16: torch.uint16, torch.float8_e4m3fn: torch.uint8}
+
+
+def _host_array(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype in _BITS:
+        x = x.view(_BITS[x.dtype])
+    return x.numpy()
+
+
+def _from_host(arr: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
+    t = torch.from_numpy(arr)
+    if ref.dtype in _BITS and t.dtype == _BITS[ref.dtype]:
+        t = t.view(ref.dtype)
+    return t.to(ref.device, ref.dtype)
+
+
 def _sha256(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -53,8 +72,7 @@ class CheckpointManager:
     def save(self, step: int, state) -> Path:
         """state: nested dicts of tensors. Returns the checkpoint's path."""
         named = list(_flatten_with_paths(state))
-        arrays = {f"a{i}": x.detach().cpu().numpy()
-                  for i, (_, x) in enumerate(named)}
+        arrays = {f"a{i}": _host_array(x) for i, (_, x) in enumerate(named)}
         paths = [p for p, _ in named]
         final = self.dir / f"step_{step:010d}.npz"
         tmp = final.with_suffix(".npz.tmp")
@@ -125,6 +143,6 @@ class CheckpointManager:
                 if tuple(ref.shape) != arr.shape:
                     raise ValueError(f"{path}: checkpoint shape {arr.shape}"
                                      f", state shape {tuple(ref.shape)}")
-                out.append(torch.from_numpy(arr).to(ref.device, ref.dtype))
+                out.append(_from_host(arr, ref))
             return _unflatten_like(state_like, iter(out)), s
         return None, None

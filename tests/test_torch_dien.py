@@ -177,8 +177,11 @@ def test_serve_launcher_and_trainer_on_cpu(capsys):
     with pytest.raises(ValueError, match="no serving path"):
         launch_serve.main(["--arch", "gin-tu", "--reduced", "--device",
                            "cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        launch_serve.serve_lm(reduce_arch("dien"), 2)
+    # the LM half of the same launcher serves a reduced LM on the CPU
+    toks = launch_serve.serve_lm(reduce_arch("granite-moe-1b-a400m"), 2, 8,
+                                 3, device="cpu")
+    assert toks.shape == (2, 3) and toks.dtype == torch.int32
+    assert "served 2 requests x 3 tokens" in capsys.readouterr().out
     tr = Trainer(reduce_arch("dien"), "train_batch", device="cpu",
                  cfg=TrainerConfig(steps=2, log_every=1))
     log = tr.run()

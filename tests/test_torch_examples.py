@@ -1,4 +1,4 @@
-"""The port's graph-side examples (``repro_torch.examples``) on the CPU.
+"""The port's examples (``repro_torch.examples``) on the CPU.
 
 Each example's ``main`` runs with ``--device cpu`` (``distributed_bfs`` on
 four gloo ranks, ``--ndev 4``, a (1, 2, 2) mesh; ``weighted_sssp`` at its
@@ -18,8 +18,8 @@ import torch
 
 from conftest import run_in_subprocess
 from repro_torch.examples import (distributed_bfs, graph_analytics,
-                                  quickstart, serve_analytics, sweep_trace,
-                                  weighted_sssp)
+                                  quickstart, serve_analytics, serve_lm,
+                                  sweep_trace, train_lm, weighted_sssp)
 
 REF_CODE = """
 import json
@@ -87,6 +87,12 @@ out["weighted_sssp"] = dict(
     reached=[int(np.isfinite(np.asarray(res.dist[:, i])).sum())
              for i in range(3)],
     steps=[int(res.steps[i]) for i in range(3)])
+from repro.configs.reduced import reduce_arch
+out["train_lm"] = dict(params=reduce_arch("phi4-mini-3.8b").model_cfg
+                       .param_count())
+cfg = reduce_arch("qwen3-moe-30b-a3b").model_cfg
+out["serve_lm"] = dict(params=cfg.param_count(), experts=cfg.moe.num_experts,
+                       top_k=cfg.moe.top_k)
 print("REF_EXAMPLES " + json.dumps(out))
 """
 
@@ -178,10 +184,41 @@ def test_distributed_bfs(ref, dist_bfs_run):
     assert distributed_bfs.mesh_shape(1) == (1, 1, 1)
 
 
+def test_train_lm(ref, tmp_path, capsys):
+    """A few of the reference's 200 steps, its prints, then a rerun with
+    more steps resumes from the last checkpoint (every 50 steps)."""
+    ckpt = str(tmp_path / "ckpt")
+    got = train_lm.main(["--device", "cpu", "--steps", "60", "--ckpt-dir",
+                         ckpt])
+    assert got["params"] == ref()["train_lm"]["params"]
+    assert got["arch"] == "phi4-mini-3.8b-reduced" and got["steps"] == 60
+    assert [m["step"] for m in got["log"]] == [20, 40, 60]
+    assert got["log"][-1]["loss"] < got["log"][0]["loss"]
+    out = capsys.readouterr().out
+    assert f"({got['params']:,} params) for 60 steps" in out
+    assert "final loss:" in out
+    again = train_lm.main(["--device", "cpu", "--steps", "80", "--ckpt-dir",
+                           ckpt, "--arch", "phi4-mini-3.8b"])
+    assert [m["step"] for m in again["log"]] == [80]
+
+
+def test_serve_lm(ref, capsys):
+    got = serve_lm.main(["--device", "cpu"])
+    want = ref()["serve_lm"]
+    assert got["tokens"].shape == (4, 16)
+    out = capsys.readouterr().out
+    assert (f"({want['params']:,} params, MoE {want['experts']} experts "
+            f"top-{want['top_k']})") in out
+    assert "served 4 requests x 16 tokens" in out
+    assert torch.equal(serve_lm.main(["--device", "cpu"])["tokens"],
+                       got["tokens"])
+
+
 def test_examples_raise_without_gpu(monkeypatch):
     """The examples run on the GPU unless told otherwise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for example in (quickstart, weighted_sssp, graph_analytics,
-                    serve_analytics, sweep_trace, distributed_bfs):
+                    serve_analytics, sweep_trace, distributed_bfs, train_lm,
+                    serve_lm):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.main([])
