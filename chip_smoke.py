@@ -243,6 +243,17 @@ phase prints one JSON line:
            32-bit run's; sweep wall and TEPS, the replay's pool lanes,
            wall, read-out copy ms a packed layer and host split at both
            widths;
+  dryrun   the dry-runs, which touch no device (meta tensors over a fake
+           process group of 256 or 512 ranks), at once, each in its own
+           process: repro_torch.launch.bfs_dryrun at scale 22 and 26 and
+           repro_torch.launch.dryrun on one LM cell (phi4-mini-3.8b
+           train_4k) on both meshes, which shows this torch has fake_pg;
+           then repro_torch.benchmarks.run --only roofline over their
+           records (in --out DIR or a temporary directory); the records
+           by status (none may be an error), each BFS cell's per-layer
+           wire MB by direction and its dominant term, the LM cell's
+           counted over analytic executed FLOPs and argument GB a device,
+           the roofline line, seconds;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed;
            msbfs_probe's and segment_or's u64 record from the child; the
@@ -294,6 +305,7 @@ from repro_torch.analytics.engine import pad_roots  # noqa: E402
 from repro_torch.analytics.khop import KHopResult  # noqa: E402
 from repro_torch.benchmarks import (analytics_bench,  # noqa: E402
                                     bfs_hillclimb, serve_bench)
+from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.benchmarks.fig3_teps import MODES as FIG3_MODES  # noqa: E402
 from repro_torch.benchmarks.fig3_teps import teps_point  # noqa: E402
 from repro_torch.benchmarks.sssp_teps import (bench_points,  # noqa: E402
@@ -512,6 +524,12 @@ HILLCLIMB_REPEATS = 3
 # child's time limit
 U64_WIDTHS = (1, 2, 3)
 U64_CHILD_TIMEOUT = 900
+# the dryrun phase: the BFS scales and the one model cell it runs, on both
+# meshes (every cell runs on the CPU: python -m repro_torch.launch.dryrun
+# --all --both-meshes)
+DRYRUN_SCALES = (22, 26)
+DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
+DRYRUN_TIMEOUT = 300
 # the dist phase: the partition its kernels run on block by block and the
 # host/sharded sweep pairs timed in turns
 DIST_BLOCKS = 4
@@ -531,6 +549,85 @@ SERVE_DIST_BENCH_QUERIES = 16
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def run_dryrun(args, smi) -> None:
+    """The dryrun phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    arch_id, shape_id = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.abspath(args.out or tmp)
+        out = os.path.join(root, "artifacts", "dryrun_torch")
+        runs = [["repro_torch.launch.bfs_dryrun", "--scale", str(s)]
+                for s in DRYRUN_SCALES]
+        runs.append(["repro_torch.launch.dryrun", "--arch", arch_id,
+                     "--shape", shape_id, "--both-meshes"])
+        # the dry-runs at once, each in a process of its own (each starts
+        # a fake process group, which this process must not hold)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", *cmd, "--out", out], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in runs]
+        seconds = {}
+        try:
+            for cmd, p in zip(runs, procs):
+                stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT)
+                seconds[" ".join(cmd[:3])] = time.perf_counter() - t0
+                if p.returncode != 0:
+                    sys.stderr.write(stdout[-4000:] + stderr[-8000:])
+                check(p.returncode == 0, f"{cmd[0]} exited {p.returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        # the roofline bench over their records, in this process: it only
+        # reads the records under its working directory
+        buf, cwd = io.StringIO(), os.getcwd()
+        os.chdir(root)
+        try:
+            with contextlib.redirect_stdout(buf):
+                bench_run.main(["--only", "roofline"])
+        finally:
+            os.chdir(cwd)
+        roofline = buf.getvalue().strip().splitlines()[-1]
+        recs = [json.loads(open(os.path.join(out, f)).read())
+                for f in sorted(os.listdir(out))]
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    bfs_recs = [r for r in recs if r.get("kind") == "dist_bfs"]
+    cells = [r for r in recs if "arch" in r]
+    check("error" not in status, "a dry-run cell is an error")
+    check(len(bfs_recs) == 2 * len(DRYRUN_SCALES)
+          and all(r["status"] == "ok" for r in bfs_recs),
+          "the BFS dry-run records are not all ok")
+    check(len(cells) == 2 and all(r["status"] == "skipped"
+                                  and r["counted_flops_global"]
+                                  for r in cells),
+          f"{len(cells)} model cell records, not 2 skipped and counted")
+    # no record has all three terms and a compute term until the sharded
+    # step (ROADMAP A9 (d)): a BFS layer counts no FLOPs
+    check(roofline.startswith("roofline,") and roofline.endswith(",cells=0"),
+          f"the roofline bench printed {roofline!r}")
+    emit("dryrun", card=smi, status=status, roofline=roofline,
+         bfs=[dict(scale=r["scale"], mesh=r["mesh"],
+                   wire_mb_per_layer={
+                       d: v / 1e6 for d, v in r["collective"][
+                           "per_layer_wire_bytes_by_direction"].items()},
+                   dominant=r["roofline"]["dominant"],
+                   peak_live_gb=r["memory"]["peak_live_bytes"] / 1e9)
+              for r in bfs_recs],
+         lm_counted_over_executed={
+             f"{r['arch']}/{r['shape']}/{r['mesh']}":
+             r["counted_flops_global"] / r["executed_flops_global"]
+             for r in cells},
+         argument_gb_per_device={
+             f"{r['arch']}/{r['shape']}/{r['mesh']}":
+             r["memory"]["argument_bytes"] / 1e9 for r in cells},
+         command_seconds=seconds, seconds=time.perf_counter() - t0)
 
 
 def check(cond, msg: str) -> None:
@@ -4467,6 +4564,7 @@ def main(argv=None) -> int:
     grid = run_grid(wg, args, lane_state)
     del lane_state
     u64 = run_u64(wg, args)
+    run_dryrun(args, smi)
 
     kernels = []
     for name in KERNELS:

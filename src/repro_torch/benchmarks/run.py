@@ -10,9 +10,13 @@ derived quantity.
   python -m repro_torch.benchmarks.run --full     # paper-scale sweep
 
 (with ``src`` on ``PYTHONPATH``; ``--device cpu`` for the plain PyTorch
-path). The reference's fifth bench, ``roofline``, reads the TPU dry-run
-artifacts of ``launch/roofline.py``, which the port does not have yet:
-``--only roofline`` raises.
+path). The fifth bench, ``roofline``, runs nothing on a device: it reads
+the dry-run's records (``launch/dryrun.py``, ``launch/bfs_dryrun.py``,
+under ``artifacts/dryrun_torch``) and reports the 16x16 mesh's cells with
+all three roofline terms and a compute term, and the best roofline
+fraction among them (``cells=0`` when there are none: a model cell's
+memory and collective terms wait for the sharded step, ROADMAP A9 (d), and
+a BFS cell counts no FLOPs).
 """
 from __future__ import annotations
 
@@ -62,11 +66,27 @@ def bench_table4(full: bool, device):
     return us, f"bu_speedup={tot_no / max(tot_si, 1e-9):.2f}x"
 
 
+def bench_roofline(full: bool, device):
+    from repro_torch.benchmarks.roofline import load_records
+    recs, us = _timed(load_records, "pod16x16")
+    # a record with no compute term (a BFS cell: the counting mode prices
+    # products, and a BFS layer has none) has no roofline fraction to rank
+    ok = [r for r in recs if r["status"] == "ok" and "roofline" in r
+          and r["roofline"]["compute_s"]]
+    if not ok:
+        return us, "cells=0"
+    best = max(ok, key=lambda r: r["roofline"]["roofline_fraction"])
+    return us, (f"cells={len(ok)};best_frac="
+                f"{best['roofline']['roofline_fraction']:.3f}"
+                f"@{best.get('arch', 'bfs')}/{best.get('shape', '')}")
+
+
 BENCHES = [
     ("table2_switching", bench_table2),
     ("table3_maxpos", bench_table3),
     ("fig3_teps", bench_fig3),
     ("table4_counters", bench_table4),
+    ("roofline", bench_roofline),
 ]
 
 
@@ -78,15 +98,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device; default: the GPU (raises without one)")
     args = ap.parse_args(argv)
-    if args.only == "roofline":
-        raise NotImplementedError(
-            "the roofline bench reads the dry-run roofline records of "
-            "launch/roofline.py, which is not ported yet (ROADMAP queue A "
-            "item 10 (f))")
     names = [name for name, _ in BENCHES]
     if args.only is not None and args.only not in names:
-        ap.error(f"--only must be one of {names + ['roofline']}")
-    device = resolve_device(args.device)
+        ap.error(f"--only must be one of {names}")
+    # the roofline bench reads records and needs no device
+    device = None if args.only == "roofline" else resolve_device(args.device)
 
     print("name,us_per_call,derived")
     for name, fn in BENCHES:

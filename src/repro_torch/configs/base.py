@@ -1,16 +1,21 @@
-"""Architecture registry and step builder (port of
+"""Architecture registry, input-spec builders and step builder (port of
 ``repro/configs/base.py``).
 
 Every ported architecture registers an ``Arch`` here; the trainer, the
-launcher and the tests read this one interface: the five LMs
+launcher, the dry-run and the tests read this one interface: the five LMs
 (``phi4-mini-3.8b``, ``qwen1.5-32b``, ``llama3-405b``,
 ``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``), the four GNNs
 (``gcn-cora``, ``gin-tu``, ``egnn``, ``mace``) and DIEN (``dien``), with
 the train step (gradient accumulation over microbatches too), the LM
 prefill and decode steps, the GNN forward-only serve step, and DIEN's serve
-and retrieval steps. The reference's shape and spec builders for its
-dry-run (``param_shapes``, ``input_specs``, ``step_arg_specs``) are not
-ported (ROADMAP A10 (f)).
+and retrieval steps.
+
+``param_shapes``, ``input_specs`` and ``step_arg_specs`` give a step's
+arguments as meta tensors (shape and dtype, nothing allocated) beside
+their logical axis names, the reference's ``ShapeDtypeStruct`` trees and
+spec trees: a flat dict of parameters, nested dicts of optimizer state and
+batch, a ``GraphBatch`` for a GNN. ``launch/dryrun.py`` resolves the names
+onto a mesh and traces ``make_step`` on the tensors.
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.optim.adamw import (OptConfig, adamw_update,
-                                     clip_by_global_norm)
+                                     clip_by_global_norm, init_opt_state,
+                                     opt_state_specs)
+
+PAD_MULTIPLE = 8192   # node/edge padding so graph dims divide any mesh
 
 
 @dataclass(frozen=True)
@@ -68,6 +76,10 @@ def list_archs() -> list[str]:
     return sorted(REGISTRY)
 
 
+def _pad(n: int, mult: int = PAD_MULTIPLE) -> int:
+    return -(-n // mult) * mult
+
+
 def effective_cfg(arch: Arch, shape: Shape | None):
     """Per-shape config overrides: a GNN takes its input width and class
     count from the shape."""
@@ -84,22 +96,139 @@ def effective_cfg(arch: Arch, shape: Shape | None):
     return dataclasses.replace(cfg, **over)
 
 
-# model config class -> (module under repro_torch.models, init, loss)
-_MODELS = {"LMConfig": ("transformer", "init_lm", "lm_loss"),
-           "GCNConfig": ("gnn.gcn", "init_gcn", "gcn_loss"),
-           "GINConfig": ("gnn.gin", "init_gin", "gin_loss"),
-           "EGNNConfig": ("gnn.egnn", "init_egnn", "egnn_loss"),
-           "MACEConfig": ("gnn.mace", "init_mace", "mace_loss"),
-           "DIENConfig": ("recsys.dien", "init_dien", "dien_loss")}
+# model config class -> (module under repro_torch.models, its name stem:
+# init_<stem>, <stem>_loss, <stem>_param_specs)
+_MODELS = {"LMConfig": ("transformer", "lm"), "GCNConfig": ("gnn.gcn", "gcn"),
+           "GINConfig": ("gnn.gin", "gin"), "EGNNConfig": ("gnn.egnn", "egnn"),
+           "MACEConfig": ("gnn.mace", "mace"),
+           "DIENConfig": ("recsys.dien", "dien")}
+
+
+def _model(cfg):
+    path, stem = _MODELS[type(cfg).__name__]
+    mod = importlib.import_module(f"repro_torch.models.{path}")
+    return (getattr(mod, f"init_{stem}"), getattr(mod, f"{stem}_loss"),
+            getattr(mod, f"{stem}_param_specs"))
 
 
 def param_builders(arch: Arch, shape: Shape | None = None):
     """Returns (init_fn(generator) -> params, loss_fn(params, batch))."""
     cfg = effective_cfg(arch, shape)
-    path, init, loss = _MODELS[type(cfg).__name__]
-    mod = importlib.import_module(f"repro_torch.models.{path}")
-    init, loss = getattr(mod, init), getattr(mod, loss)
+    init, loss, _ = _model(cfg)
     return (lambda g: init(g, cfg)), (lambda p, b: loss(p, b, cfg))
+
+
+def param_shapes(arch: Arch, shape: Shape | None = None):
+    """(params as meta tensors, their logical specs), both flat dicts under
+    the parameters' names; nothing is allocated."""
+    cfg = effective_cfg(arch, shape)
+    init, _, specs_of = _model(cfg)
+    params = init(torch.Generator(), cfg, device="meta")
+    specs = specs_of(cfg)
+    if set(specs) != set(params) or any(
+            len(specs[k]) != p.dim() for k, p in params.items()):
+        raise ValueError(f"{arch.arch_id}: the logical specs do not match "
+                         f"the parameters")
+    return params, specs
+
+
+# ------------------------------------------------------------- input builders
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _lm_inputs(arch: Arch, shape: Shape):
+    cfg = arch.model_cfg
+    d = shape.dims
+    b, s = d["global_batch"], d["seq_len"]
+    if shape.kind == "train":
+        return ({"tokens": _meta((b, s), torch.int32),
+                 "labels": _meta((b, s), torch.int32)},
+                {"tokens": ("batch", None), "labels": ("batch", None)})
+    if shape.kind == "prefill":
+        return ({"tokens": _meta((b, s), torch.int32)},
+                {"tokens": ("batch", None)})
+    if shape.kind == "decode":
+        kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+        kv_spec = (None, "batch", "kv_seq", "kv_heads", None)
+        return ({"token": _meta((b, 1), torch.int32),
+                 "cache_k": _meta(kv, cfg.cache_dtype),
+                 "cache_v": _meta(kv, cfg.cache_dtype),
+                 "cache_len": _meta((), torch.int32)},
+                {"token": ("batch", None), "cache_k": kv_spec,
+                 "cache_v": kv_spec, "cache_len": None})
+    raise ValueError(shape.kind)
+
+
+def _gnn_inputs(arch: Arch, shape: Shape):
+    from repro_torch.models.gnn.common import GraphBatch
+    d = shape.dims
+    n, e = _pad(d["n_nodes"]), _pad(d["n_edges"])
+    g = d.get("n_graphs", 1)
+    batch = GraphBatch(
+        senders=_meta((e,), torch.int32), receivers=_meta((e,), torch.int32),
+        edge_mask=_meta((e,), torch.bool),
+        feats=_meta((n, d["d_feat"]), torch.float32),
+        pos=_meta((n, 3), torch.float32), labels=_meta((n,), torch.int32),
+        node_mask=_meta((n,), torch.bool),
+        graph_ids=_meta((n,), torch.int32), n_graphs=g)
+    specs = GraphBatch(
+        senders=("edges",), receivers=("edges",), edge_mask=("edges",),
+        feats=("nodes", None), pos=("nodes", None), labels=("nodes",),
+        node_mask=("nodes",), graph_ids=("nodes",), n_graphs=g)
+    return batch, specs
+
+
+def _recsys_inputs(arch: Arch, shape: Shape):
+    cfg = arch.model_cfg
+    d = shape.dims
+    b, t, m = d["batch"], cfg.seq_len, cfg.profile_bag
+    batch = {"target_item": _meta((b,), torch.int32),
+             "target_cat": _meta((b,), torch.int32),
+             "hist_items": _meta((b, t), torch.int32),
+             "hist_cats": _meta((b, t), torch.int32),
+             "hist_mask": _meta((b, t), torch.bool),
+             "profile_ids": _meta((b, m), torch.int32),
+             "profile_mask": _meta((b, m), torch.bool)}
+    specs = {k: ("batch",) + (None,) * (v.dim() - 1)
+             for k, v in batch.items()}
+    if shape.kind == "train":
+        batch["labels"] = _meta((b,), torch.float32)
+        batch["neg_items"] = _meta((b, t), torch.int32)
+        specs["labels"] = ("batch",)
+        specs["neg_items"] = ("batch", None)
+    if shape.kind == "retrieval":
+        batch["candidate_ids"] = _meta((d["n_candidates"],), torch.int32)
+        specs["candidate_ids"] = ("candidates",)
+    return batch, specs
+
+
+def input_specs(arch: Arch, shape: Shape):
+    """(the step's batch as meta tensors, its logical specs): the
+    reference's names, shapes and dtypes; graph dims padded to
+    ``PAD_MULTIPLE``, the decode cache in ``cfg.cache_dtype``."""
+    if arch.family in ("lm-dense", "lm-moe"):
+        return _lm_inputs(arch, shape)
+    if arch.family == "gnn":
+        return _gnn_inputs(arch, shape)
+    if arch.family == "recsys":
+        return _recsys_inputs(arch, shape)
+    raise ValueError(arch.family)
+
+
+def step_arg_specs(arch: Arch, shape: Shape):
+    """((args as meta tensors), (their logical specs)), matching
+    ``make_step``'s signature: (params, opt_state, batch) for a train step,
+    else (params, batch)."""
+    batch, batch_specs = input_specs(arch, shape)
+    params, p_specs = param_shapes(arch, shape)
+    if shape.kind == "train":
+        return ((params, init_opt_state(params, arch.opt), batch),
+                (p_specs, opt_state_specs(p_specs, arch.opt, params),
+                 batch_specs))
+    return (params, batch), (p_specs, batch_specs)
 
 
 def _microbatches(batch: dict, k: int):

@@ -155,6 +155,15 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _layer_counts(frontier, visited, deg, comm):
+    """The layer's (e_f, v_f, e_u) over all ranks: one int32[3]
+    all-reduce SUM of the local counts."""
+    return psum(torch.stack([torch.where(frontier, deg, 0).sum(),
+                             frontier.sum(),
+                             torch.where(visited, 0, deg).sum()]).to(
+        torch.int32), comm)
+
+
 def _topdown(blk: LocalBlock, frontier, visited, parent, n: int, comm):
     """Candidates of the local frontier rows' slots over all n vertices
     (pad slots, col = n, are excluded), MIN over the ranks, the own slice
@@ -219,11 +228,7 @@ def dist_bfs(dg: DistGraph, root, mesh, mode: str = "hybrid",
     topdown = mode != "bottomup"
     layer = 0
     while layer < MAX_LAYERS:
-        counts = psum(torch.stack([torch.where(frontier, deg, 0).sum(),
-                                   frontier.sum(),
-                                   torch.where(visited, 0, deg).sum()]).to(
-            torch.int32), comm)
-        e_f, v_f, e_u = counts.tolist()
+        e_f, v_f, e_u = _layer_counts(frontier, visited, deg, comm).tolist()
         if layer and not v_f:    # the last step found nothing
             break
         if mode == "hybrid":

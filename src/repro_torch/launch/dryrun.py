@@ -1,0 +1,243 @@
+"""Dry-run of every (arch x shape) cell on the production meshes (port of
+``repro/launch/dryrun.py``), with no device touched and nothing allocated:
+the step's arguments are meta tensors (``configs/base.py::
+step_arg_specs``) and the mesh is a ``DeviceMesh`` over a fake process
+group of 256 or 512 ranks, which ``main`` starts for each mesh (the
+counterpart of the reference's fake host devices). ``main`` traces a
+step once a cell, one cell after another (its counts do not depend on the
+mesh), then resolves every cell on each mesh.
+
+Each model cell records:
+  * the arguments' bytes on one device, their logical specs resolved onto
+    the mesh (``distributed/sharding.py``), and the bytes a donated
+    argument gives back (``alias_bytes``: params and optimizer state of a
+    train step, the cache of a decode step);
+  * ``model_flops_global`` and ``executed_flops_global``
+    (``launch/flops.py``) and the compute term from the executed FLOPs per
+    device;
+  * ``counted_flops_global``: ``launch/roofline.py::CountingMode`` over the
+    unsharded step traced on meta tensors at the global shapes (a decode
+    step given its cache length as a host int, which it reads on the host),
+    or None and ``counted_skip_reason`` where the step needs tensor values
+    (the GNN steps build their adjacency from the edges).
+
+The memory, HBM and collective terms on a production mesh need the
+sharded step, which is not ported: such a cell is ``status: "skipped"``
+with a ``skip_reason`` naming ROADMAP A9 (d), beside the fields above. A
+shape the reference skips keeps its reason. A cell that raises is recorded
+as ``"error"`` and the run exits nonzero.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
+      --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
+      [--out artifacts/dryrun_torch]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+
+from repro_torch.configs.base import (get_arch, list_archs, make_step,
+                                      step_arg_specs)
+from repro_torch.distributed.sharding import tree_shardings
+from repro_torch.launch import roofline as rl
+from repro_torch.launch.bfs_dryrun import DEFAULT_OUT
+from repro_torch.launch.flops import analytic_flops
+from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+
+SHARDED_STEP_SKIP = (
+    "the memory, HBM and collective terms on a production mesh need the "
+    "sharded step, which is not ported yet (ROADMAP A9 (d)); argument bytes "
+    "per device, analytic and counted FLOPs and the compute term are "
+    "recorded")
+
+
+def _mesh_tag(multi_pod: bool) -> str:
+    return "pod2x16x16" if multi_pod else "pod16x16"
+
+
+def _count(arch, shape) -> dict:
+    args, _ = step_arg_specs(arch, shape)
+    if shape.kind == "decode":       # the step reads cache_len on the host
+        args[1]["cache_len"] = shape.dims["seq_len"] - 1
+    step = make_step(arch, shape)
+    with rl.CountingMode() as cm:
+        cm.hold(args)
+        step(*args)
+    return dict(flops=cm.flops, hbm_bytes=cm.hbm_bytes,
+                peak_bytes=cm.peak_bytes, ops=cm.ops)
+
+
+def counted_step(arch, shape) -> dict:
+    """The counting mode over one unsharded step on meta tensors at the
+    global shapes. An LM is traced at 1 and 2 layers and its counts taken
+    at its layer count: its layers are alike, so the counts are affine in
+    the layer count (the peak is not, and is left out)."""
+    t0 = time.time()
+    try:
+        if arch.family in ("lm-dense", "lm-moe") \
+                and arch.model_cfg.n_layers > 2:
+            one, two = (_count(dataclasses.replace(
+                arch, model_cfg=dataclasses.replace(arch.model_cfg,
+                                                    n_layers=k)), shape)
+                        for k in (1, 2))
+            extra = arch.model_cfg.n_layers - 1
+            c = {k: one[k] + extra * (two[k] - one[k])
+                 for k in ("flops", "hbm_bytes", "ops")}
+            c["peak_bytes"] = None
+            rule = "traced at 1 and 2 layers, affine in the layer count"
+        else:
+            c = _count(arch, shape)
+            rule = "traced whole"
+    except rl.DataDependentOp as e:
+        return dict(counted_flops_global=None,
+                    counted_skip_reason=f"the step runs {e}, which meta "
+                                        f"tensors cannot give")
+    return dict(counted_flops_global=c["flops"],
+                counted_hbm_bytes_global=c["hbm_bytes"],
+                counted_peak_bytes_global=c["peak_bytes"],
+                counted_ops=c["ops"], counted_rule=rule,
+                trace_s=round(time.time() - t0, 2))
+
+
+def mesh_record(arch, shape, multi_pod: bool, donate: bool = True) -> dict:
+    """A cell's record without its counted fields, on the production mesh
+    over the process group the caller started."""
+    rec = dict(arch=arch.arch_id, shape=shape.shape_id,
+               mesh=_mesh_tag(multi_pod), kind=shape.kind)
+    if shape.skip_reason:
+        rec.update(status="skipped", skip_reason=shape.skip_reason)
+        return rec
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n_dev = mesh.mesh.numel()
+    args, specs = step_arg_specs(arch, shape)
+    shardings = tree_shardings(args, specs, mesh)
+    # donated: params and optimizer state of a train step, the cache
+    # buffers of a decode step (updated in place)
+    donated = {"train": ("0.", "1."),
+               "decode": ("1.cache_k", "1.cache_v")}.get(shape.kind, ())
+    alias = sum(s.local_bytes for p, s in shardings.items()
+                if donate and p.startswith(donated))
+    an = analytic_flops(arch, shape)
+    exec_per_dev = an["executed_flops"] / n_dev
+    rec.update(
+        status="skipped", skip_reason=SHARDED_STEP_SKIP, n_devices=n_dev,
+        donate=donate,
+        model_flops_global=an["model_flops"],
+        executed_flops_global=an["executed_flops"],
+        executed_flops_per_device=exec_per_dev,
+        memory=dict(argument_bytes=sum(s.local_bytes
+                                       for s in shardings.values()),
+                    alias_bytes=alias, output_bytes=None, temp_bytes=None),
+        roofline=dict(compute_s=exec_per_dev / rl.PEAK_FLOPS, memory_s=None,
+                      collective_s=None, dominant=None,
+                      step_time_bound_s=None, roofline_fraction=None),
+    )
+    return rec
+
+
+def add_counted(rec: dict, counted: dict | None) -> dict:
+    """``rec`` with ``counted_step``'s fields (a cell the reference skips
+    takes none)."""
+    if "memory" in rec:
+        c = counted["counted_flops_global"]
+        rec.update(counted, model_to_counted_ratio=(
+            rec["model_flops_global"] / c if c else None))
+    return rec
+
+
+def dryrun_cell(arch_id: str, shape_id: str, multi_pod: bool,
+                donate: bool = True) -> dict:
+    """One cell's record on the production mesh, over the process group
+    the caller started."""
+    arch = get_arch(arch_id)
+    shape = arch.shape(shape_id)
+    rec = mesh_record(arch, shape, multi_pod, donate)
+    return add_counted(rec, counted_step(arch, shape)
+                       if "memory" in rec else None)
+
+
+def _error(arch_id, shape_id, mp, e) -> dict:
+    return dict(arch=arch_id, shape=shape_id, mesh=_mesh_tag(mp),
+                status="error", error=repr(e),
+                traceback="".join(traceback.format_exception(e)))
+
+
+def _report(tag: str, rec: dict) -> None:
+    extra = ""
+    if rec["status"] == "error":
+        extra = " " + rec["error"][:120]
+    elif "memory" in rec:
+        c = rec["counted_flops_global"]
+        extra = (f" args={rec['memory']['argument_bytes'] / 1e9:.2f}"
+                 f"GB/dev compute={rec['roofline']['compute_s']:.4f}s"
+                 " counted/executed="
+                 + (f"{c / rec['executed_flops_global']:.3f}"
+                    if c is not None else "-"))
+    print(f"[{rec['status']:7s}] {tag}{extra}", flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--no-donate", action="store_true")
+    args = ap.parse_args(argv)
+    if not args.all and args.arch is None:
+        ap.error("give --arch (and optionally --shape) or --all")
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    if args.all:
+        cells = [(a, s.shape_id) for a in list_archs()
+                 for s in get_arch(a).shapes]
+    else:
+        arch = get_arch(args.arch)
+        shapes = ([args.shape] if args.shape
+                  else [s.shape_id for s in arch.shapes])
+        cells = [(args.arch, s) for s in shapes]
+
+    meshes = [args.multi_pod] if not args.both_meshes else [False, True]
+    counted = {}      # a step's counts do not depend on the mesh
+    for arch_id, shape_id in cells:
+        arch = get_arch(arch_id)
+        shape = arch.shape(shape_id)
+        if not shape.skip_reason:
+            try:
+                counted[arch_id, shape_id] = counted_step(arch, shape)
+            except Exception as e:  # recorded as the cell's error
+                counted[arch_id, shape_id] = e
+
+    failures = 0
+    for mp in meshes:
+        with fake_process_group(512 if mp else 256):
+            for arch_id, shape_id in cells:
+                arch = get_arch(arch_id)
+                c = counted.get((arch_id, shape_id))
+                try:
+                    if isinstance(c, Exception):
+                        raise c
+                    rec = add_counted(mesh_record(
+                        arch, arch.shape(shape_id), mp, not args.no_donate),
+                        c)
+                except Exception as e:  # a failing cell is a bug
+                    rec = _error(arch_id, shape_id, mp, e)
+                failures += rec["status"] == "error"
+                tag = f"{arch_id}__{shape_id}__{_mesh_tag(mp)}"
+                (out / f"{tag}.json").write_text(json.dumps(
+                    rec, indent=2, default=str))
+                _report(tag, rec)
+    if failures:
+        raise SystemExit(f"{failures} dry-run cells failed")
+
+
+if __name__ == "__main__":
+    main()

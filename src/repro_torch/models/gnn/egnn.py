@@ -21,7 +21,7 @@ from torch.nn import functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import GraphBatch, aggregate, graph_pool
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.params import flatten, prefixed, unflatten
 
 
 @dataclass(frozen=True)
@@ -33,15 +33,26 @@ class EGNNConfig:
     dtype: str = "float32"
 
 
-def init_egnn(gen: torch.Generator, cfg: EGNNConfig) -> dict:
+def init_egnn(gen: torch.Generator, cfg: EGNNConfig, device=None) -> dict:
     d = cfg.d_hidden
-    tree = {"embed": L.dense(gen, cfg.d_feat, d, bias=True), "layers": []}
+    tree = {"embed": L.dense(gen, cfg.d_feat, d, bias=True, device=device),
+            "layers": []}
     for _ in range(cfg.n_layers):
-        tree["layers"].append({"phi_e": L.mlp_init(gen, [2 * d + 1, d, d]),
-                               "phi_x": L.mlp_init(gen, [d, d, 1]),
-                               "phi_h": L.mlp_init(gen, [2 * d, d, d])})
-    tree["readout"] = L.mlp_init(gen, [d, d, 1])
+        tree["layers"].append(
+            {"phi_e": L.mlp_init(gen, [2 * d + 1, d, d], device=device),
+             "phi_x": L.mlp_init(gen, [d, d, 1], device=device),
+             "phi_h": L.mlp_init(gen, [2 * d, d, d], device=device)})
+    tree["readout"] = L.mlp_init(gen, [d, d, 1], device=device)
     return flatten(tree)
+
+
+def egnn_param_specs(cfg: EGNNConfig) -> dict:
+    specs = prefixed("embed", L.dense_specs(("embed", "mlp"), bias=True))
+    for i in range(cfg.n_layers):
+        for name in ("phi_e", "phi_x", "phi_h"):
+            specs.update(prefixed(f"layers.{i}.{name}", L.mlp_specs(2)))
+    specs.update(prefixed("readout", L.mlp_specs(2)))
+    return specs
 
 
 def egnn_forward(params: dict, gb: GraphBatch, cfg: EGNNConfig):

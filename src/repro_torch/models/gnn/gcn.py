@@ -40,15 +40,21 @@ def _dims(cfg: GCNConfig) -> list[int]:
         + [cfg.n_classes]
 
 
-def init_gcn(gen: torch.Generator, cfg: GCNConfig) -> dict:
-    """{"layers.{i}.w", "layers.{i}.b"} on the generator's device."""
+def init_gcn(gen: torch.Generator, cfg: GCNConfig, device=None) -> dict:
+    """{"layers.{i}.w", "layers.{i}.b"} on the generator's device, or on
+    ``device``."""
     dims = _dims(cfg)
     params = {}
     for i in range(len(dims) - 1):
         p = L.dense(gen, dims[i], dims[i + 1], getattr(torch, cfg.dtype),
-                    bias=True)
+                    bias=True, device=device)
         params.update({f"layers.{i}.{k}": v for k, v in p.items()})
     return params
+
+
+def gcn_param_specs(cfg: GCNConfig) -> dict:
+    return {f"layers.{i}.{k}": v for i in range(len(_dims(cfg)) - 1)
+            for k, v in L.dense_specs(("embed", "mlp"), bias=True).items()}
 
 
 def gcn_forward(params: dict, gb: GraphBatch, cfg: GCNConfig,

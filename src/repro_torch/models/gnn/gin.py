@@ -25,7 +25,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import (Adjacency, GraphBatch,
                                            build_adjacency, graph_pool,
                                            sum_aggregate)
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.params import flatten, prefixed, unflatten
 
 
 @dataclass(frozen=True)
@@ -39,17 +39,27 @@ class GINConfig:
     dtype: str = "float32"
 
 
-def init_gin(gen: torch.Generator, cfg: GINConfig) -> dict:
-    tree = {"eps": torch.zeros((cfg.n_layers,), device=gen.device),
+def init_gin(gen: torch.Generator, cfg: GINConfig, device=None) -> dict:
+    device = gen.device if device is None else device
+    tree = {"eps": torch.zeros((cfg.n_layers,), device=device),
             "mlps": [], "heads": []}
     d_in = cfg.d_feat
     for _ in range(cfg.n_layers):
         tree["mlps"].append(L.mlp_init(gen, [d_in, cfg.d_hidden,
-                                             cfg.d_hidden]))
+                                             cfg.d_hidden], device=device))
         tree["heads"].append(L.dense(gen, cfg.d_hidden, cfg.n_classes,
-                                     bias=True))
+                                     bias=True, device=device))
         d_in = cfg.d_hidden
     return flatten(tree)
+
+
+def gin_param_specs(cfg: GINConfig) -> dict:
+    specs = {"eps": (None,)}
+    for i in range(cfg.n_layers):
+        specs.update(prefixed(f"mlps.{i}", L.mlp_specs(2)))
+        specs.update(prefixed(f"heads.{i}",
+                              L.dense_specs(("mlp", None), bias=True)))
+    return specs
 
 
 def gin_forward(params: dict, gb: GraphBatch, cfg: GINConfig,

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import GraphBatch, graph_pool
 from repro_torch.models.gnn.sph import LS, N_COMP, gaunt_tensor, real_sph
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.params import flatten, prefixed, unflatten
 
 
 @dataclass(frozen=True)
@@ -64,21 +64,40 @@ def bessel_basis(r: torch.Tensor, n_rbf: int, r_cut: float) -> torch.Tensor:
     return basis * env[:, None]
 
 
-def init_mace(gen: torch.Generator, cfg: MACEConfig) -> dict:
+def init_mace(gen: torch.Generator, cfg: MACEConfig, device=None) -> dict:
     c = cfg.d_hidden
-    tree = {"embed": L.dense(gen, cfg.d_feat, c, bias=True),
-            "readout": L.mlp_init(gen, [c, c, 1]), "layers": []}
+    tree = {"embed": L.dense(gen, cfg.d_feat, c, bias=True, device=device),
+            "readout": L.mlp_init(gen, [c, c, 1], device=device),
+            "layers": []}
     f32 = torch.float32
     for _ in range(cfg.n_layers):
         tree["layers"].append({
             # radial MLP: n_rbf -> c (per-channel radial weight)
-            "radial": L.mlp_init(gen, [cfg.n_rbf, c, c]),
+            "radial": L.mlp_init(gen, [cfg.n_rbf, c, c], device=device),
             # per-l channel mixing for each correlation order
-            "w1": L._dense_init(gen, (3, c, c), f32),
-            "w2": L._dense_init(gen, (3, c, c), f32, scale=0.1 / np.sqrt(c)),
+            "w1": L._dense_init(gen, (3, c, c), f32, device=device),
+            "w2": L._dense_init(gen, (3, c, c), f32, scale=0.1 / np.sqrt(c),
+                                device=device),
             "w3": L._dense_init(gen, (3, c, c), f32,
-                                scale=0.01 / np.sqrt(c))})
+                                scale=0.01 / np.sqrt(c), device=device)})
     return flatten(tree)
+
+
+def mace_param_specs(cfg: MACEConfig) -> dict:
+    """The reference's own table (not ``mlp_specs``'): the radial MLP's
+    input and the readout carry no logical axis."""
+    specs = {**prefixed("embed", L.dense_specs(("embed", "mlp"), bias=True)),
+             "readout.0.w": (None, None), "readout.0.b": (None,),
+             "readout.1.w": (None, None), "readout.1.b": (None,)}
+    for t in range(cfg.n_layers):
+        specs.update({
+            f"layers.{t}.radial.0.w": (None, "mlp"),
+            f"layers.{t}.radial.0.b": ("mlp",),
+            f"layers.{t}.radial.1.w": ("mlp", "mlp"),
+            f"layers.{t}.radial.1.b": ("mlp",),
+            **{f"layers.{t}.{w}": (None, "mlp", "mlp")
+               for w in ("w1", "w2", "w3")}})
+    return specs
 
 
 def _per_l_mix(w_l: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:

@@ -5,29 +5,46 @@ SwiGLU, the plain MLP and the masked cross-entropy.
 Pure functions over dicts of tensors. Initial values come from an explicit
 ``torch.Generator``: they follow the reference's distributions, not its
 values (JAX's threefry stream is not reproduced), so the tests carry the
-reference's parameters across.
+reference's parameters across. They land on the generator's device unless
+``device`` names another (``"meta"``: shapes only, nothing allocated).
+
+Each ``*_specs`` function gives the logical axis names of its init's
+parameters, as a flat dict under the same dotted names: the reference's
+``(params, specs)`` second half, which ``distributed/sharding.py``
+resolves onto a mesh.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.params import prefixed
 
-def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
+
+def _dense_init(gen: torch.Generator, shape, dtype, scale=None,
+                device=None):
     fan_in = shape[0] if len(shape) >= 1 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(max(1, fan_in))
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=gen.device if device is None else device)
     return (x * scale).to(dtype)
 
 
 def dense(gen: torch.Generator, d_in: int, d_out: int,
-          dtype=torch.float32, bias: bool = False) -> dict:
+          dtype=torch.float32, bias: bool = False, device=None) -> dict:
     """{"w": [d_in, d_out] normal * 1/sqrt(d_in)} (+ {"b": zeros})."""
-    params = {"w": _dense_init(gen, (d_in, d_out), dtype)}
+    device = gen.device if device is None else device
+    params = {"w": _dense_init(gen, (d_in, d_out), dtype, device=device)}
     if bias:
-        params["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        params["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return params
+
+
+def dense_specs(logical=("embed", "mlp"), bias: bool = False) -> dict:
+    specs = {"w": tuple(logical)}
+    if bias:
+        specs["b"] = (logical[-1],)
+    return specs
 
 
 def apply_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -197,21 +214,36 @@ ATTN_CHUNK_THRESHOLD = 8192   # the blockwise path beyond this q length
 
 def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv: int, d_head: int, dtype=torch.float32,
-                   qkv_bias: bool = False) -> dict:
-    return {"wq": dense(gen, d_model, n_heads * d_head, dtype, qkv_bias),
-            "wk": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias),
-            "wv": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias),
-            "wo": dense(gen, n_heads * d_head, d_model, dtype)}
+                   qkv_bias: bool = False, device=None) -> dict:
+    return {"wq": dense(gen, d_model, n_heads * d_head, dtype, qkv_bias,
+                        device),
+            "wk": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias,
+                        device),
+            "wv": dense(gen, d_model, n_kv * d_head, dtype, qkv_bias,
+                        device),
+            "wo": dense(gen, n_heads * d_head, d_model, dtype, device=device)}
+
+
+def attention_specs(qkv_bias: bool = False) -> dict:
+    return {**prefixed("wq", dense_specs(("embed", "heads"), qkv_bias)),
+            **prefixed("wk", dense_specs(("embed", "kv"), qkv_bias)),
+            **prefixed("wv", dense_specs(("embed", "kv"), qkv_bias)),
+            **prefixed("wo", dense_specs(("heads", "embed")))}
 
 
 # --------------------------------------------------------------- SwiGLU MLP
 
 
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
-                dtype=torch.float32) -> dict:
-    return {"w1": dense(gen, d_model, d_ff, dtype),
-            "w3": dense(gen, d_model, d_ff, dtype),
-            "w2": dense(gen, d_ff, d_model, dtype)}
+                dtype=torch.float32, device=None) -> dict:
+    return {"w1": dense(gen, d_model, d_ff, dtype, device=device),
+            "w3": dense(gen, d_model, d_ff, dtype, device=device),
+            "w2": dense(gen, d_ff, d_model, dtype, device=device)}
+
+
+def swiglu_specs() -> dict:
+    return {"w1.w": ("embed", "mlp"), "w3.w": ("embed", "mlp"),
+            "w2.w": ("mlp", "embed")}
 
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -219,11 +251,21 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
             * (x @ p["w3"]["w"])) @ p["w2"]["w"]
 
 
-def mlp_init(gen: torch.Generator, sizes, dtype=torch.float32) -> list:
+def mlp_init(gen: torch.Generator, sizes, dtype=torch.float32,
+             device=None) -> list:
     """Plain MLP used by GNN and recsys heads, sizes = [d0, d1, ..., dk]:
     a list of {"w", "b"} dense layers."""
-    return [dense(gen, sizes[i], sizes[i + 1], dtype, bias=True)
+    return [dense(gen, sizes[i], sizes[i + 1], dtype, bias=True,
+                  device=device)
             for i in range(len(sizes) - 1)]
+
+
+def mlp_specs(n_dense: int) -> dict:
+    """The specs of an ``mlp_init`` of ``n_dense`` layers: ("embed",
+    "mlp") into the first, ("mlp", "mlp") after it."""
+    return {f"{i}.{k}": v for i in range(n_dense)
+            for k, v in dense_specs(("embed", "mlp") if i == 0
+                                    else ("mlp", "mlp"), bias=True).items()}
 
 
 _ACTS = {"relu": torch.relu,

@@ -49,14 +49,21 @@ class MoEConfig:
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
-             dtype=torch.float32) -> dict:
+             dtype=torch.float32, device=None) -> dict:
     """As the reference's: each weight normal over the square root of its
     first dimension (the expert count for w1, w3 and w2)."""
     e, f = cfg.num_experts, cfg.d_ff_expert
-    return {"router": _dense_init(gen, (d_model, e), torch.float32),
-            "w1": _dense_init(gen, (e, d_model, f), dtype),
-            "w3": _dense_init(gen, (e, d_model, f), dtype),
-            "w2": _dense_init(gen, (e, f, d_model), dtype)}
+    return {"router": _dense_init(gen, (d_model, e), torch.float32,
+                                  device=device),
+            "w1": _dense_init(gen, (e, d_model, f), dtype, device=device),
+            "w3": _dense_init(gen, (e, d_model, f), dtype, device=device),
+            "w2": _dense_init(gen, (e, f, d_model), dtype, device=device)}
+
+
+def moe_specs() -> dict:
+    return {"router": ("embed", None), "w1": ("experts", "embed", "mlp"),
+            "w3": ("experts", "embed", "mlp"),
+            "w2": ("experts", "mlp", "embed")}
 
 
 def moe_capacity(n_tokens: int, cfg: MoEConfig) -> int:
@@ -101,7 +108,10 @@ def _moe_ffn_chunk(p: dict, x: torch.Tensor, cfg: MoEConfig):
     flat_e = top_e.reshape(-1)                               # [T*k]
     order = torch.argsort(flat_e, stable=True)               # by expert
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)             # [E]
+    # [E]; an index_add, not bincount: its length is known without the
+    # data, so the dry-run traces it on meta tensors
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=dev) - starts[se]
     keep = pos_in_e < cap

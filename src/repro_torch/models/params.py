@@ -33,6 +33,11 @@ def flatten(tree) -> dict:
     return dict(flat_items(tree))
 
 
+def prefixed(prefix: str, flat: dict) -> dict:
+    """``flat`` with every name under ``prefix``."""
+    return {f"{prefix}.{k}": v for k, v in flat.items()}
+
+
 def unflatten(flat: dict):
     """The nest of dicts and lists that ``flatten`` came from: a level
     whose keys are 0..k-1 is a list, any other a dict."""

@@ -28,7 +28,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.params import flatten, prefixed, unflatten
 
 
 @dataclass(frozen=True)
@@ -50,15 +50,15 @@ class DIENConfig:
         return 2 * self.embed_dim  # item ++ category
 
 
-def _normal(gen, shape, scale):
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+def _normal(gen, shape, scale, device):
+    return torch.randn(shape, generator=gen, device=device) * scale
 
 
-def _gru_init(gen, d_in, d_h):
+def _gru_init(gen, d_in, d_h, device):
     s = float(1.0 / np.sqrt(np.float32(d_in + d_h)))
-    return {"wx": _normal(gen, (d_in, 3 * d_h), s),
-            "wh": _normal(gen, (d_h, 3 * d_h), s),
-            "b": torch.zeros((3 * d_h,), device=gen.device)}
+    return {"wx": _normal(gen, (d_in, 3 * d_h), s, device),
+            "wh": _normal(gen, (d_h, 3 * d_h), s, device),
+            "b": torch.zeros((3 * d_h,), device=device)}
 
 
 def _gru_cell(p, h, x, att=None):
@@ -74,20 +74,39 @@ def _gru_cell(p, h, x, att=None):
     return (1.0 - z) * h + z * n
 
 
-def init_dien(gen: torch.Generator, cfg: DIENConfig) -> dict:
+def init_dien(gen: torch.Generator, cfg: DIENConfig, device=None) -> dict:
+    device = gen.device if device is None else device
     e = cfg.embed_dim
     tree = {
-        "item_table": _normal(gen, (cfg.n_items, e), 0.05),
-        "cat_table": _normal(gen, (cfg.n_cats, e), 0.05),
-        "profile_table": _normal(gen, (cfg.n_profiles, e), 0.05),
-        "gru": _gru_init(gen, cfg.behav_dim, cfg.gru_dim),
-        "augru": _gru_init(gen, cfg.behav_dim, cfg.gru_dim),
-        "att": L.mlp_init(gen, [cfg.gru_dim + cfg.behav_dim, 36, 1]),
+        "item_table": _normal(gen, (cfg.n_items, e), 0.05, device),
+        "cat_table": _normal(gen, (cfg.n_cats, e), 0.05, device),
+        "profile_table": _normal(gen, (cfg.n_profiles, e), 0.05, device),
+        "gru": _gru_init(gen, cfg.behav_dim, cfg.gru_dim, device),
+        "augru": _gru_init(gen, cfg.behav_dim, cfg.gru_dim, device),
+        "att": L.mlp_init(gen, [cfg.gru_dim + cfg.behav_dim, 36, 1],
+                          device=device),
         "mlp": L.mlp_init(gen, [cfg.gru_dim + 2 * cfg.behav_dim + e,
-                                *cfg.mlp_dims, 1]),
-        "user_proj": L.dense(gen, cfg.gru_dim, e),
+                                *cfg.mlp_dims, 1], device=device),
+        "user_proj": L.dense(gen, cfg.gru_dim, e, device=device),
     }
     return flatten(tree)
+
+
+def dien_param_specs(cfg: DIENConfig) -> dict:
+    """The reference's own table: the tables shard their rows as a vocab
+    (the category table stays whole), the MLP its hidden widths."""
+    gru = {"wx": (None, "mlp"), "wh": (None, "mlp"), "b": ("mlp",)}
+    n_mlp = len(cfg.mlp_dims) + 1
+    mlp = {}
+    for j in range(n_mlp):
+        w = ((None if j == 0 else "mlp"), (None if j == n_mlp - 1 else "mlp"))
+        mlp.update({f"{j}.w": w, f"{j}.b": (w[1],)})
+    return {"item_table": ("vocab", "embed"), "cat_table": (None, "embed"),
+            "profile_table": ("vocab", "embed"),
+            **prefixed("gru", gru), **prefixed("augru", gru),
+            "att.0.w": (None, None), "att.0.b": (None,),
+            "att.1.w": (None, None), "att.1.b": (None,),
+            **prefixed("mlp", mlp), "user_proj.w": (None, "embed")}
 
 
 def embedding_bag(table, ids, mask, op: str = "mean"):

@@ -36,8 +36,8 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
-from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init, moe_specs
+from repro_torch.models.params import flatten, prefixed, unflatten
 
 # float8_e4m3fn's largest finite value is 448; the reference's cast (round
 # to nearest even) gives NaN for whatever rounds past it, i.e. above the
@@ -121,36 +121,50 @@ class LMConfig:
 # ------------------------------------------------------------------- init
 
 
-def _layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
+def _layer_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
     pdt = getattr(torch, cfg.param_dtype)
-    p = {"ln1": L.rmsnorm_init(cfg.d_model, pdt, gen.device),
-         "ln2": L.rmsnorm_init(cfg.d_model, pdt, gen.device),
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, pdt, device),
+         "ln2": L.rmsnorm_init(cfg.d_model, pdt, device),
          "attn": L.attention_init(gen, cfg.d_model, cfg.n_heads,
                                   cfg.n_kv_heads, cfg.d_head, pdt,
-                                  qkv_bias=cfg.qkv_bias)}
+                                  qkv_bias=cfg.qkv_bias, device=device)}
     if cfg.moe is not None:
-        p["moe"] = moe_init(gen, cfg.d_model, cfg.moe, pdt)
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.moe, pdt, device)
     else:
-        p["mlp"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, pdt)
+        p["mlp"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, pdt, device)
     return flatten(p)
 
 
-def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
-    """Parameters drawn from ``gen`` on its device (the reference's
-    distributions, not its values): the layers drawn one by one and
-    stacked."""
+def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
+    """Parameters drawn from ``gen`` on its device, or on ``device`` (the
+    reference's distributions, not its values): the layers drawn one by
+    one and stacked."""
+    device = gen.device if device is None else device
     pdt = getattr(torch, cfg.param_dtype)
-    embed = L._dense_init(gen, (cfg.vocab, cfg.d_model), pdt, scale=0.02)
-    per_layer = [_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
+    embed = L._dense_init(gen, (cfg.vocab, cfg.d_model), pdt, scale=0.02,
+                          device=device)
+    per_layer = [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)]
     params = {"embed": embed}
     for name in list(per_layer[0]):
         params[f"layers.{name}"] = torch.stack([lp[name] for lp in per_layer])
         for lp in per_layer:
             del lp[name]
-    params["ln_f.scale"] = L.rmsnorm_init(cfg.d_model, pdt,
-                                          gen.device)["scale"]
-    params["head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab), pdt)
+    params["ln_f.scale"] = L.rmsnorm_init(cfg.d_model, pdt, device)["scale"]
+    params["head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab), pdt,
+                                   device=device)
     return params
+
+
+def lm_param_specs(cfg: LMConfig) -> dict:
+    """Logical axes of ``init_lm``'s parameters; a stacked layer tensor
+    leads with None (its layer dimension)."""
+    layer = {"ln1.scale": ("embed",), "ln2.scale": ("embed",),
+             **prefixed("attn", L.attention_specs(cfg.qkv_bias)),
+             **(prefixed("moe", moe_specs()) if cfg.moe is not None
+                else prefixed("mlp", L.swiglu_specs()))}
+    return {"embed": ("vocab", "embed"),
+            **{f"layers.{k}": (None,) + v for k, v in layer.items()},
+            "ln_f.scale": ("embed",), "head": ("embed", "vocab")}
 
 
 def layer_params(params: dict, n_layers: int) -> list[dict]:

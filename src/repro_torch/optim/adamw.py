@@ -64,6 +64,29 @@ def init_opt_state(params: dict[str, torch.Tensor], cfg: OptConfig) -> dict:
             "per_param": {k: one(p) for k, p in params.items()}}
 
 
+def opt_state_specs(param_specs: dict, cfg: OptConfig,
+                    params: dict) -> dict:
+    """Logical specs mirroring ``init_opt_state``'s structure: a moment
+    takes its parameter's spec, a factored row statistic drops the last
+    axis and a column statistic the one before it; "step" is None."""
+
+    def one(spec, shape):
+        spec = tuple(spec) if spec is not None else (None,) * len(shape)
+        st = {}
+        if cfg.b1 > 0:
+            st["m"] = spec
+        if cfg.factored and _is_factorable(shape):
+            st["vr"] = spec[:-1]
+            st["vc"] = spec[:-2] + spec[-1:]
+        else:
+            st["v"] = spec
+        return st
+
+    return {"step": None,
+            "per_param": {k: one(param_specs[k], p.shape)
+                          for k, p in params.items()}}
+
+
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.to(torch.float32)))
               for x in tree.values()]

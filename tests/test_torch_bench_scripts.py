@@ -104,13 +104,48 @@ def test_run_headline_matches_reference(capsys, name):
     assert "name,us_per_call,derived" in lines
     row = [ln for ln in lines if ln.startswith(f"{name},")]
     assert len(row) == 1 and row[0].split(",")[2] == want
-    assert [n for n, _ in bench_run.BENCHES] == [
-        n for n, _ in ref.BENCHES if n != "roofline"]
+    assert [n for n, _ in bench_run.BENCHES] == [n for n, _ in ref.BENCHES]
 
 
-def test_run_refuses_roofline():
-    with pytest.raises(NotImplementedError, match="item 10 \\(f\\)"):
-        bench_run.main(["--only", "roofline", "--device", "cpu"])
+def test_run_roofline_over_records(capsys, tmp_path, monkeypatch):
+    """``--only roofline`` reads the dry-run's records under the working
+    directory (no device): the 16x16 cells with all three terms and a
+    compute term, the best roofline fraction among them, in the reference
+    runner's format."""
+    recs = tmp_path / "artifacts" / "dryrun_torch"
+    recs.mkdir(parents=True)
+
+    def put(name, **rec):
+        (recs / f"{name}.json").write_text(json.dumps(rec))
+
+    def terms(frac):
+        return dict(compute_s=frac, memory_s=1.0, collective_s=0.5,
+                    dominant="memory", step_time_bound_s=1.0,
+                    roofline_fraction=frac)
+
+    put("bfs-a", kind="dist_bfs", mesh="pod16x16", status="ok",
+        roofline=terms(0.25))
+    put("bfs-b", kind="dist_bfs", mesh="pod2x16x16", status="ok",
+        roofline=terms(0.75))
+    # no compute term, as a BFS layer counts no FLOPs: no fraction to rank
+    put("bfs-c", kind="dist_bfs", mesh="pod16x16", status="ok",
+        roofline=terms(0.0))
+    put("lm", arch="phi4-mini-3.8b", shape="train_4k", kind="train",
+        mesh="pod16x16", status="ok", roofline=terms(0.5))
+    put("lm-skip", arch="phi4-mini-3.8b", shape="decode_32k",
+        kind="decode", mesh="pod16x16", status="skipped",
+        roofline=dict(compute_s=0.1, memory_s=None, collective_s=None,
+                      dominant=None, roofline_fraction=None))
+    monkeypatch.chdir(tmp_path)
+    bench_run.main(["--only", "roofline"])
+    lines = capsys.readouterr().out.splitlines()
+    row = [ln for ln in lines if ln.startswith("roofline,")]
+    assert len(row) == 1
+    assert row[0].split(",")[2] == "cells=2;best_frac=0.500@phi4-mini-3.8b/train_4k"
+    for r in recs.glob("*.json"):
+        r.unlink()
+    bench_run.main(["--only", "roofline"])
+    assert capsys.readouterr().out.splitlines()[-1].endswith(",cells=0")
     with pytest.raises(SystemExit):
         bench_run.main(["--only", "nonesuch", "--device", "cpu"])
 

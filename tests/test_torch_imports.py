@@ -98,7 +98,10 @@ def test_port_files_are_found():
             "models/recsys/dien.py", "configs/gin_tu.py",
             "configs/egnn_arch.py", "configs/mace_arch.py",
             "configs/dien_arch.py", "launch/serve.py",
-            "examples/gnn_neighbor_sampling.py"} <= names
+            "examples/gnn_neighbor_sampling.py", "launch/mesh.py",
+            "launch/flops.py", "launch/roofline.py", "launch/dryrun.py",
+            "launch/bfs_dryrun.py", "distributed/sharding.py",
+            "benchmarks/roofline.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
