@@ -80,6 +80,23 @@ phase prints one JSON line:
            forward, backward, optimizer; one step under torch.profiler:
            the device's busy share and largest kernels) for gin-tu at
            ogb_products and egnn and mace at minibatch_lg;
+  sharded  the sharded train step (repro_torch.train.sharded) and its
+           aggregation: owner_gather_scatter's local body on each block of a
+           4-way contiguous edge partition of gin-tu's ogb_products batch
+           (n = 2,449,029, e = 61,859,140) at d = 100 and 64, ell_spmm and
+           spmm_residue once each a block, each bit-equal to its plain
+           version (the residue in slot order), timed beside its bound, the
+           four partial sums within float32's bound of the whole
+           aggregation in float64; then, in one NCCL rank of run_ranks on a
+           1x1 ("data", "model") mesh, make_sharded_step for gin-tu at
+           ogb_products in turns with the unsharded Trainer step (3 steps
+           from the same state, losses within 1e-4, step ms, peak GB, the
+           kernels' launches a step), and the five reduced LMs and reduced
+           dien through make_sharded_step for 2 steps each against the
+           unsharded step on the CPU (losses within 1e-4, TF32 off); the
+           first's state gathered and saved on the card and restored on
+           the CPU bit for bit. No multi-rank time: NCCL takes one GPU a
+           rank;
   dien     DIEN at full width: the Trainer at train_batch (65,536 rows in
            8 microbatches, 3 steps), launch.serve's serve_recsys at
            serve_p99 (512) and serve_bulk (262,144) with the serve step
@@ -118,7 +135,9 @@ phase prints one JSON line:
            sums and ratio; both steps' vertices and parents equal on every
            layer), then Fig. 3's harmonic-mean TEPS of hybrid,
            hybrid_nosimd and topdown at edgefactor 16, 32 and 64 (16 roots,
-           3 repeats in turns: median and spread), with the launches;
+           3 repeats in turns: median and spread), with the launches; the
+           edgefactor-32 and -64 graphs at scale 17 at most
+           (FIG3_DENSE_SCALE);
   analytics       the analytics layer on LaneEngine(lanes=None) over the
            weighted graph: khop (64 sources, k = 2), bfs_depths, reach_hops,
            closeness (auto: 256 sampled sources), diameter bounds,
@@ -166,7 +185,7 @@ phase prints one JSON line:
            host replay's; the replay's wall beside the host's; the
            recorders named dist_msbfs and dist_sssp), the ms and host syncs
            of the first ticks of the trace's first burst on the host and
-           the sharded service, serve(validate=True) over 64 bfs requests
+           the sharded service, serve(validate=True) over 32 bfs requests
            (every BFS tree validated), serve_bench on the sharded pools
            (16 queries, its own asserts) and, after the trace's first burst,
            one khop over the HTTP plane against run_query; the launches of
@@ -246,14 +265,18 @@ phase prints one JSON line:
   dryrun   the dry-runs, which touch no device (meta tensors over a fake
            process group of 256 or 512 ranks), at once, each in its own
            process: repro_torch.launch.bfs_dryrun at scale 22 and 26 and
-           repro_torch.launch.dryrun on one LM cell (phi4-mini-3.8b
-           train_4k) on both meshes, which shows this torch has fake_pg;
-           then repro_torch.benchmarks.run --only roofline over their
-           records (in --out DIR or a temporary directory); the records
-           by status (none may be an error), each BFS cell's per-layer
-           wire MB by direction and its dominant term, the LM cell's
-           counted over analytic executed FLOPs and argument GB a device,
-           the roofline line, seconds;
+           repro_torch.launch.dryrun on an LM cell (phi4-mini-3.8b
+           train_4k) and a GNN cell (mace ogb_products) on both meshes,
+           which shows this torch has fake_pg; each model cell traces the
+           sharded step and must be ok with every memory and roofline
+           term; then repro_torch.benchmarks.run --only roofline over
+           their records (in --out DIR or a temporary directory), which
+           must rank the two 16x16 model cells; the records by status
+           (none may be an error), each BFS cell's per-layer wire MB by
+           direction and its dominant term, each model cell's counted over
+           analytic executed FLOPs, its argument, peak, output, temporary,
+           HBM and wire GB a device and its roofline, the roofline line,
+           seconds;
   kernels  one entry per ported kernel (counts, errors, times, bounds;
            the in-path sums over the layers that ran it, where timed;
            msbfs_probe's and segment_or's u64 record from the child; the
@@ -388,7 +411,11 @@ from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
 from repro_torch.models.gnn.common import (ELL_K_MAX,  # noqa: E402
-                                           build_adjacency)
+                                           build_adjacency, edge_adjacency)
+from repro_torch.distributed.aggregate import (local_aggregate,  # noqa: E402
+                                               masked)
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.sharded import make_sharded_step  # noqa: E402
 from repro_torch.examples import gnn_neighbor_sampling  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.gnn.gcn import gcn_loss  # noqa: E402
@@ -496,6 +523,10 @@ INF = float("inf")
 FIG3_EDGEFACTORS = (16, 32, 64)
 FIG3_ROOTS = 16
 FIG3_REPEATS = 3
+# Fig. 3's edgefactor-32 and -64 graphs are built at this scale at most
+# (the shared graph, edgefactor 16, keeps --scale): at scale 20 the two
+# took about 112-130 s to generate on the host (at 18, 34 s)
+FIG3_DENSE_SCALE = 17
 KHOP_SOURCES = 64
 WEIGHTED_SOURCES = 32
 # connected_components seeds 64 roots a sweep and copies the sweep's [n, 64]
@@ -524,11 +555,22 @@ HILLCLIMB_REPEATS = 3
 # child's time limit
 U64_WIDTHS = (1, 2, 3)
 U64_CHILD_TIMEOUT = 900
-# the dryrun phase: the BFS scales and the one model cell it runs, on both
-# meshes (every cell runs on the CPU: python -m repro_torch.launch.dryrun
-# --all --both-meshes)
+# the dryrun phase: the BFS scales and the model cells it runs, an LM's and
+# a GNN's, on both meshes (every cell runs on the CPU: python -m
+# repro_torch.launch.dryrun --all --both-meshes)
 DRYRUN_SCALES = (22, 26)
-DRYRUN_CELL = ("phi4-mini-3.8b", "train_4k")
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"), ("mace", "ogb_products"))
+# the sharded phase: GIN's aggregation at ogb_products on each block of a
+# 4-way contiguous edge partition (owner_gather_scatter's local body) at the
+# layer-0 and the hidden width; the sharded step's steps (gin-tu at
+# ogb_products, in turns with the unsharded Trainer) and the reduced
+# configs it takes on a 1-rank NCCL mesh, 2 steps each against the CPU
+SHARDED_BLOCKS = 4
+SHARDED_WIDTHS = (100, 64)
+SHARDED_STEPS = 3
+SHARDED_ARCHS = ("phi4-mini-3.8b", "qwen1.5-32b", "llama3-405b",
+                 "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "dien")
+SHARDED_TOL = 1e-4
 DRYRUN_TIMEOUT = 300
 # the dist phase: the partition its kernels run on block by block and the
 # host/sharded sweep pairs timed in turns
@@ -543,12 +585,229 @@ GRID = (2, 2)
 GRID_CHECKS = ((1, 4), (4, 1))
 SYNC_STEPS = 12
 # the serve_dist phase's serve_bench queries (the serve_bench phase runs
-# SERVE_REQUESTS on the host pools)
+# SERVE_REQUESTS on the host pools), and its validated bfs requests (each
+# tree takes about 4.8 s of a host thread)
 SERVE_DIST_BENCH_QUERIES = 16
+SERVE_DIST_VALIDATED = 32
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def sharded_blocks(dev, reps, flush) -> dict:
+    """The sharded phase's kernels: owner_gather_scatter's local body
+    (``distributed/aggregate.py::local_aggregate``, a CSR over the block's
+    edges into all n rows, through ell_spmm and spmm_residue) on each block
+    of a 4-way contiguous edge partition of gin-tu's ogb_products batch, at
+    d = 100 (its features) and 64 (a seeded hidden width). Each block's
+    kernels must be bit-equal to their plain versions (the residue summed
+    in slot order) and make one launch each; the blocks' partial sums
+    together must lie within float32's summation bound of the whole
+    aggregation in float64 (slot order differs between blocks: not bit for
+    bit). Returns the kernels line's record, by kernel."""
+    arch = get_arch("gin-tu")
+    gb = gnn_batch(arch, arch.shape("ogb_products"), 0, seed=SEED + 5,
+                   device=dev)
+    n, e = gb.n_nodes, gb.n_edges
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    full = build_adjacency(gb)
+    deg = full.fwd.deg
+    rec = {name: dict(blocks=[], bit_equal=True) for name in GNN_KERNELS}
+    sums = []
+    for d in SHARDED_WIDTHS:
+        x = gb.feats if d == gb.feats.shape[1] else torch.randn(
+            (n, d), generator=gen, device=dev)
+        total = torch.zeros((n, d), device=dev)
+        for b in range(SHARDED_BLOCKS):
+            lo, hi = b * e // SHARDED_BLOCKS, (b + 1) * e // SHARDED_BLOCKS
+            snd, rcv = gb.senders[lo:hi], gb.receivers[lo:hi]
+            mask = gb.edge_mask[lo:hi]
+            adj = edge_adjacency(snd, rcv, mask, n)
+            g, (neigh, valid) = adj.fwd, adj.fwd_ell
+            tail = int((g.deg - ELL_K_MAX).clamp(min=0).max())
+            check(tail <= RESIDUE_LONG_TAIL,
+                  f"block {b} has a tail of {tail} slots, past the row pass")
+            torch.cuda.synchronize()
+            common.reset_launches()
+            part = local_aggregate(x, snd, rcv, mask, masked, n, adj)
+            torch.cuda.synchronize()
+            launches = {k: common.LAUNCHES[k] for k in GNN_KERNELS}
+            check(all(v == 1 for v in launches.values()),
+                  f"block {b}'s local aggregation launched {launches}")
+            slab = ell_spmm_cuda(neigh, valid, x)
+            slab_plain = ell_spmm_ref(neigh, valid, x)
+            check(torch.equal(slab.view(torch.int32),
+                              slab_plain.view(torch.int32)),
+                  f"ell_spmm differs from its plain version on block {b}")
+            want = residue_slot_order(g, x, slab_plain, ELL_K_MAX)
+            check(torch.equal(part.view(torch.int32), want.view(torch.int32)),
+                  f"spmm_residue differs from its slot-order plain version "
+                  f"on block {b}")
+            total += part
+            slots = int(valid.sum())
+            tail_slots = int((g.deg - ELL_K_MAX).clamp(min=0).sum())
+            tail_rows = int((g.deg > ELL_K_MAX).sum())
+            costs = {"ell_spmm": slab_cost(n, ELL_K_MAX, slots, n, d),
+                     "spmm_residue": residue_cost(n, tail_slots, tail_rows,
+                                                  n, d)}
+            plain = {"ell_spmm": lambda: ell_spmm_ref(neigh, valid, x),
+                     "spmm_residue": lambda: spmm_residue_ref(
+                         g.row_ptr, g.src_idx, g.col_idx, x, slab, ELL_K_MAX)}
+            acc = slab.clone()     # the residue adds into it in place
+            cuda = {"ell_spmm": lambda: ell_spmm_cuda(neigh, valid, x),
+                    "spmm_residue": lambda: spmm_residue_cuda(
+                        g.row_ptr, g.src_idx, g.col_idx, x, acc,
+                        ELL_K_MAX)}
+            for name in GNN_KERNELS:
+                bms, by = costs[name]
+                rec[name]["blocks"].append(dict(
+                    block=b, d=d, edges=hi - lo, launches=launches[name],
+                    ms=time_ms(cuda[name], reps, flush),
+                    plain_ms=time_ms(plain[name], reps, flush),
+                    bound_ms=bms, bound_by=by))
+            del adj, g, neigh, valid, part, slab, slab_plain, want, acc
+        x64 = x.double()
+        whole = spmm_aggregate_ref(full.fwd, x64, ELL_K_MAX, full.fwd_ell)
+        abs_sum = spmm_aggregate_ref(full.fwd, x64.abs(), ELL_K_MAX,
+                                     full.fwd_ell)
+        err = (total.double() - whole).abs()
+        # each block's rows sum in float32, then the 4 partial sums
+        ratio = float((err / f32_bound(abs_sum, deg + SHARDED_BLOCKS)).max())
+        check(ratio <= 1.0, f"the blocks' sum at d={d} exceeds float32's "
+                            f"bound of the whole aggregation ({ratio})")
+        sums.append(dict(d=d, max_abs_err_f64=float(err.max()),
+                         bound_ratio=ratio))
+        del x, x64, whole, abs_sum, err, total
+    for name in GNN_KERNELS:
+        rec[name]["block_sums"] = sums
+        emit("sharded", part="blocks", name=name, n=n, edges=e,
+             n_blocks=SHARDED_BLOCKS, **rec[name])
+    return rec
+
+
+def sharded_rank(ckpt_dir) -> dict:
+    """A 1-rank NCCL run: the sharded step (``train/sharded.py``) of gin-tu
+    at ogb_products in turns with the unsharded Trainer's, from the same
+    state on the same batches; then each reduced config of SHARDED_ARCHS
+    through the sharded step against the unsharded step on the CPU, and the
+    sharded state of the first gathered and saved for the CPU to restore."""
+    from repro_torch.launch.mesh import host_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = host_device_mesh(1)
+    gin = get_arch("gin-tu")
+    shape = gin.shape("ogb_products")
+    tr = Trainer(gin, "ogb_products", cfg=TrainerConfig(seed=SEED))
+    step = make_sharded_step(gin, shape, mesh)
+    params, opt = step.place({k: v.clone() for k, v in tr.params.items()},
+                             init_opt_state(tr.params, gin.opt))
+    rows = []
+    for s in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = tr.run_step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        batch = step.shard_batch(gnn_batch(gin, shape, s, seed=SEED,
+                                           device=dev))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        params, opt, got = step(params, opt, batch)
+        torch.cuda.synchronize()
+        rows.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, plain_ms=plain_ms,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+            launches={k: common.LAUNCHES[k] for k in GNN_KERNELS},
+            loss=float(got["loss"]), plain_loss=float(plain["loss"]),
+            grad_norm=float(got["grad_norm"]),
+            plain_grad_norm=float(plain["grad_norm"])))
+        del batch
+    out = dict(gin=dict(mode=step.mode, steps=rows))
+    del tr, step, params, opt
+    torch.cuda.empty_cache()
+    reduced = {}
+    for arch_id in SHARDED_ARCHS:
+        arch = reduce_arch(arch_id)
+        shape = next(s for s in arch.shapes if s.kind == "train")
+        init = param_builders(arch, shape)[0](
+            torch.Generator().manual_seed(SEED))
+        cpu_p, cpu_st = init, init_opt_state(init, arch.opt)
+        cpu_step = make_step(arch, shape)
+        step = make_sharded_step(arch, shape, mesh)
+        params, opt = step.place(
+            {k: v.to(dev) for k, v in init.items()},
+            init_opt_state({k: v.to(dev) for k, v in init.items()},
+                           arch.opt))
+        losses = []
+        common.reset_launches()
+        for k in range(2):
+            cpu_p, cpu_st, want = cpu_step(cpu_p, cpu_st, make_batch(
+                arch, shape, k, seed=SEED, device="cpu"))
+            params, opt, got = step(params, opt, step.shard_batch(
+                make_batch(arch, shape, k, seed=SEED, device=dev)))
+            losses.append((float(got["loss"]), float(want["loss"])))
+        reduced[arch.arch_id] = dict(mode=step.mode, losses=losses,
+                                     launches=sum(common.LAUNCHES.values()))
+        if arch_id == SHARDED_ARCHS[0]:
+            whole = step.gather(params, opt)
+            CheckpointManager(ckpt_dir).save(2, {"params": whole[0],
+                                                 "opt": whole[1]})
+            out["saved"] = {k: v.cpu().numpy() for k, v in whole[0].items()}
+        del step, params, opt
+    out["reduced"] = reduced
+    return out
+
+
+def run_sharded(dev, smi, reps) -> dict:
+    """The sharded phase (see the module docstring). Returns the kernels
+    line's record, by kernel."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    rec = sharded_blocks(dev, reps, flush)
+    del flush
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        out = run_ranks(sharded_rank, 1, tmp)
+        arch = reduce_arch(SHARDED_ARCHS[0])
+        tr = Trainer(arch, next(s.shape_id for s in arch.shapes
+                                if s.kind == "train"), device="cpu",
+                     cfg=TrainerConfig(ckpt_dir=tmp))
+        check(tr.maybe_restore() == 2, "the sharded checkpoint did not "
+                                       "restore on the CPU")
+        restored = all(tr.params[k].numpy().tobytes() == v.tobytes()
+                       for k, v in out["saved"].items())
+        check(restored, "the CPU's restore differs from the card's state")
+    seconds = time.perf_counter() - t0
+    steps = out["gin"]["steps"]
+    for r in steps:
+        check(abs(r["loss"] - r["plain_loss"])
+              <= SHARDED_TOL * abs(r["plain_loss"]),
+              f"the sharded gin-tu step's loss {r['loss']} against the "
+              f"Trainer's {r['plain_loss']}")
+        check(all(v > 0 for v in r["launches"].values()),
+              f"the sharded gin-tu step launched {r['launches']}")
+    for arch_id, r in out["reduced"].items():
+        for got, want in r["losses"]:
+            check(abs(got - want) <= SHARDED_TOL * abs(want),
+                  f"{arch_id}'s sharded loss {got} on the card against "
+                  f"{want} on the CPU")
+    ms = [r["ms"] for r in steps]
+    emit("sharded", part="gin_step", card=smi, arch="gin-tu",
+         shape="ogb_products", ranks=1, mode=out["gin"]["mode"],
+         steps=steps, step_ms=spread(ms[1:]),
+         plain_step_ms=spread([r["plain_ms"] for r in steps][1:]),
+         peak_gb=max(r["peak_gb"] for r in steps))
+    emit("sharded", part="reduced", card=smi, ranks=1, **out["reduced"],
+         checkpoint_restored_on_cpu=restored, rank_seconds=seconds)
+    for name in GNN_KERNELS:
+        rec[name]["step_launches"] = [r["launches"][name] for r in steps]
+    return rec
 
 
 def run_dryrun(args, smi) -> None:
@@ -556,14 +815,14 @@ def run_dryrun(args, smi) -> None:
     t0 = time.perf_counter()
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src)
-    arch_id, shape_id = DRYRUN_CELL
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.abspath(args.out or tmp)
         out = os.path.join(root, "artifacts", "dryrun_torch")
         runs = [["repro_torch.launch.bfs_dryrun", "--scale", str(s)]
                 for s in DRYRUN_SCALES]
-        runs.append(["repro_torch.launch.dryrun", "--arch", arch_id,
-                     "--shape", shape_id, "--both-meshes"])
+        runs += [["repro_torch.launch.dryrun", "--arch", arch_id,
+                  "--shape", shape_id, "--both-meshes"]
+                 for arch_id, shape_id in DRYRUN_CELLS]
         # the dry-runs at once, each in a process of its own (each starts
         # a fake process group, which this process must not hold)
         procs = [subprocess.Popen(
@@ -604,13 +863,16 @@ def run_dryrun(args, smi) -> None:
     check(len(bfs_recs) == 2 * len(DRYRUN_SCALES)
           and all(r["status"] == "ok" for r in bfs_recs),
           "the BFS dry-run records are not all ok")
-    check(len(cells) == 2 and all(r["status"] == "skipped"
-                                  and r["counted_flops_global"]
-                                  for r in cells),
-          f"{len(cells)} model cell records, not 2 skipped and counted")
-    # no record has all three terms and a compute term until the sharded
-    # step (ROADMAP A9 (d)): a BFS layer counts no FLOPs
-    check(roofline.startswith("roofline,") and roofline.endswith(",cells=0"),
+    check(len(cells) == 2 * len(DRYRUN_CELLS)
+          and all(r["status"] == "ok" and r["counted_flops_global"]
+                  and None not in r["roofline"].values()
+                  and None not in r["memory"].values() for r in cells),
+          f"{len(cells)} model cell records, not {2 * len(DRYRUN_CELLS)} "
+          f"ok with every term")
+    # the model cells have all three terms and a compute term (a BFS layer
+    # counts no FLOPs): one a cell on the 16x16 mesh
+    check(roofline.startswith("roofline,")
+          and f",cells={len(DRYRUN_CELLS)};" in roofline,
           f"the roofline bench printed {roofline!r}")
     emit("dryrun", card=smi, status=status, roofline=roofline,
          bfs=[dict(scale=r["scale"], mesh=r["mesh"],
@@ -620,13 +882,20 @@ def run_dryrun(args, smi) -> None:
                    dominant=r["roofline"]["dominant"],
                    peak_live_gb=r["memory"]["peak_live_bytes"] / 1e9)
               for r in bfs_recs],
-         lm_counted_over_executed={
+         counted_over_executed={
              f"{r['arch']}/{r['shape']}/{r['mesh']}":
              r["counted_flops_global"] / r["executed_flops_global"]
              for r in cells},
-         argument_gb_per_device={
-             f"{r['arch']}/{r['shape']}/{r['mesh']}":
-             r["memory"]["argument_bytes"] / 1e9 for r in cells},
+         cells={f"{r['arch']}/{r['shape']}/{r['mesh']}": dict(
+             argument_gb=r["memory"]["argument_bytes"] / 1e9,
+             peak_gb=r["memory"]["peak_bytes"] / 1e9,
+             output_gb=r["memory"]["output_bytes"] / 1e9,
+             temp_gb=r["memory"]["temp_bytes"] / 1e9,
+             hbm_gb=r["hbm_bytes_per_device"] / 1e9,
+             wire_gb=r["collective"]["wire_bytes_per_device"] / 1e9,
+             collectives=r["collective"]["num_collectives"],
+             roofline=r["roofline"], sharded=r["sharded"])
+             for r in cells},
          command_seconds=seconds, seconds=time.perf_counter() - t0)
 
 
@@ -2642,7 +2911,9 @@ def figure3(g, args):
     with the launches at each edgefactor."""
     for ef in FIG3_EDGEFACTORS:
         t0 = time.perf_counter()
-        ge = g if ef == EDGEFACTOR else rmat_graph(args.scale, ef, SEED)
+        scale = args.scale if ef == EDGEFACTOR else min(args.scale,
+                                                        FIG3_DENSE_SCALE)
+        ge = g if ef == EDGEFACTOR else rmat_graph(scale, ef, SEED)
         torch.cuda.synchronize()
         gen_seconds = time.perf_counter() - t0
         teps = {mode: [] for mode in FIG3_MODES}
@@ -2650,7 +2921,7 @@ def figure3(g, args):
         t0 = time.perf_counter()
         for _ in range(FIG3_REPEATS):
             for mode in FIG3_MODES:
-                teps[mode].append(teps_point(ge, args.scale, ef, mode,
+                teps[mode].append(teps_point(ge, scale, ef, mode,
                                              FIG3_ROOTS, SEED))
         seconds = time.perf_counter() - t0
         launches = dict(common.LAUNCHES)
@@ -2659,7 +2930,7 @@ def figure3(g, args):
               f"Fig. 3 at edgefactor {ef} launched {launches}")
         for mode, values in teps.items():
             check(all(v > 0 for v in values), f"Fig. 3 {mode} ef={ef}: 0 TEPS")
-        emit("figures", table="fig3", scale=args.scale, edgefactor=ef, n=ge.n,
+        emit("figures", table="fig3", scale=scale, edgefactor=ef, n=ge.n,
              m=ge.m, roots=FIG3_ROOTS, repeats=FIG3_REPEATS,
              graph_seconds=gen_seconds if ge is not g else 0.0,
              seconds=seconds, launches=launches,
@@ -3252,7 +3523,7 @@ def serve_dist_rank(graph_path, scale, host_digest) -> dict:
     service pools over a 1-rank mesh (the front door with no followers).
     The serve phase's replay (digest against the host replay's), a
     tick's syncs and ms beside the host service's, the compat path
-    serve(validate=True) over 64 bfs requests, serve_bench on the sharded
+    serve(validate=True) over 32 bfs requests, serve_bench on the sharded
     pools, and one khop over the HTTP plane; each part's launches."""
     from repro_torch.launch.serve_bfs import bfs_requests, serve
     dev = rank_device()
@@ -3321,7 +3592,7 @@ def serve_dist_rank(graph_path, scale, host_digest) -> dict:
         ms_median=statistics.median(r["ms"] for r in rows))
         for name, rows in ticks.items()}
 
-    roots = sample_roots(g, SERVE_REQUESTS, seed=SEED + 1)
+    roots = sample_roots(g, SERVE_DIST_VALIDATED, seed=SEED + 1)
     # the validator's span: serve looks it up when it validates
     import repro_torch.graph.validate as validate
     spans, validate_tree = [], validate.validate_bfs_tree
@@ -3338,9 +3609,9 @@ def serve_dist_rank(graph_path, scale, host_digest) -> dict:
             validate=True, mesh=mesh))
     finally:
         validate.validate_bfs_tree = validate_tree
-    check(st["validated"] and st["requests"] == SERVE_REQUESTS,
+    check(st["validated"] and st["requests"] == SERVE_DIST_VALIDATED,
           "the compat path did not validate its trees")
-    check(len(spans) == SERVE_REQUESTS,
+    check(len(spans) == SERVE_DIST_VALIDATED,
           f"the compat path validated {len(spans)} trees")
     out["compat"] = dict(seconds=seconds, launches=launches,
                          layers=st["layers"], lanes=st["lanes"],
@@ -4548,6 +4819,7 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     gin = run_gnn_zoo(dev, smi, max(args.reps // 4, 3), flush)
     del flush
+    sharded = run_sharded(dev, smi, max(args.reps // 4, 3))
     run_dien(dev, smi)
     run_lm(dev, smi)
 
@@ -4587,6 +4859,10 @@ def main(argv=None) -> int:
                 example_launches=gin["example_launches"][name],
                 bit_equal=True, max_abs_err=g["max_abs_err"],
                 max_bound_ratio=g["max_bound_ratio"], inputs=g["inputs"])
+            # the sharded step: the kernel on each block of a 4-way edge
+            # partition (owner_gather_scatter's local body) and its
+            # launches in each sharded gin-tu step on a 1-rank mesh
+            per["sharded"] = sharded[name]
         elif name in SSSP_KERNELS:
             r, count = rchk.rec[name], sssp_launches[name]
             per = dict(launches_per_step=count / sssp_steps)

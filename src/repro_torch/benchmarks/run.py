@@ -14,9 +14,9 @@ path). The fifth bench, ``roofline``, runs nothing on a device: it reads
 the dry-run's records (``launch/dryrun.py``, ``launch/bfs_dryrun.py``,
 under ``artifacts/dryrun_torch``) and reports the 16x16 mesh's cells with
 all three roofline terms and a compute term, and the best roofline
-fraction among them (``cells=0`` when there are none: a model cell's
-memory and collective terms wait for the sharded step, ROADMAP A9 (d), and
-a BFS cell counts no FLOPs).
+fraction among them (``cells=0`` when there are none; a BFS cell counts
+no FLOPs, and a GNN cell whose step builds its adjacency from the edges is
+skipped).
 """
 from __future__ import annotations
 

@@ -27,8 +27,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.optim.adamw import (OptConfig, adamw_update,
-                                     clip_by_global_norm, init_opt_state,
-                                     opt_state_specs)
+                                     clip_by_global_norm, global_norm,
+                                     init_opt_state, opt_state_specs)
 
 PAD_MULTIPLE = 8192   # node/edge padding so graph dims divide any mesh
 
@@ -239,6 +239,51 @@ def _microbatches(batch: dict, k: int):
     return [{key: v[i] for key, v in split.items()} for i in range(k)]
 
 
+def make_train_step(arch: Arch, loss_fn: Callable,
+                    norm_fn: Callable = global_norm,
+                    update_fn: Callable = adamw_update) -> Callable:
+    """``make_step``'s train step over ``loss_fn(params, batch)``: the
+    gradients of the k microbatches (``arch.microbatches``) averaged in
+    ``opt.accum_dtype``, clipped by ``norm_fn``'s global norm and applied
+    by ``update_fn`` (the sharded step passes its own three)."""
+    opt_cfg = arch.opt
+    k = max(1, arch.microbatches)
+
+    def grads_of(params, batch):
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in params.items()}
+        loss, metrics = loss_fn(leaves, batch)
+        got = torch.autograd.grad(loss, list(leaves.values()),
+                                  allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(leaves.items(), got)}
+        return loss.detach(), metrics, grads
+
+    def train_step(params, opt_state, batch):
+        if k > 1:
+            acc_dt = getattr(torch, opt_cfg.accum_dtype)
+            grads = {n: torch.zeros(p.shape, dtype=acc_dt,
+                                    device=p.device)
+                     for n, p in params.items()}
+            losses = []
+            for mb in _microbatches(batch, k):
+                loss, _, g = grads_of(params, mb)
+                grads = {n: a + (g[n] / k).to(acc_dt)
+                         for n, a in grads.items()}
+                losses.append(loss)
+            loss = torch.stack(losses).mean()
+            metrics = {}
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+            metrics = {n: v.detach() for n, v in metrics.items()}
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip,
+                                           norm_fn(grads))
+        params, opt_state = update_fn(params, grads, opt_state, opt_cfg)
+        metrics.update(loss=loss, grad_norm=gnorm)
+        return params, opt_state, metrics
+    return train_step
+
+
 def make_step(arch: Arch, shape: Shape) -> Callable:
     """The function the trainer and the serving launcher execute:
 
@@ -265,42 +310,7 @@ def make_step(arch: Arch, shape: Shape) -> Callable:
     _, loss_fn = param_builders(arch, shape)
 
     if shape.kind == "train":
-        opt_cfg = arch.opt
-        k = max(1, arch.microbatches)
-
-        def grads_of(params, batch):
-            leaves = {n: p.detach().requires_grad_(True)
-                      for n, p in params.items()}
-            loss, metrics = loss_fn(leaves, batch)
-            got = torch.autograd.grad(loss, list(leaves.values()),
-                                      allow_unused=True)
-            grads = {n: torch.zeros_like(p) if g is None else g
-                     for (n, p), g in zip(leaves.items(), got)}
-            return loss.detach(), metrics, grads
-
-        def train_step(params, opt_state, batch):
-            if k > 1:
-                acc_dt = getattr(torch, opt_cfg.accum_dtype)
-                grads = {n: torch.zeros(p.shape, dtype=acc_dt,
-                                        device=p.device)
-                         for n, p in params.items()}
-                losses = []
-                for mb in _microbatches(batch, k):
-                    loss, _, g = grads_of(params, mb)
-                    grads = {n: a + (g[n] / k).to(acc_dt)
-                             for n, a in grads.items()}
-                    losses.append(loss)
-                loss = torch.stack(losses).mean()
-                metrics = {}
-            else:
-                loss, metrics, grads = grads_of(params, batch)
-                metrics = {n: v.detach() for n, v in metrics.items()}
-            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
-            params, opt_state = adamw_update(params, grads, opt_state,
-                                             opt_cfg)
-            metrics.update(loss=loss, grad_norm=gnorm)
-            return params, opt_state, metrics
-        return train_step
+        return make_train_step(arch, loss_fn)
 
     if shape.kind == "prefill":
         from repro_torch.models.transformer import lm_prefill

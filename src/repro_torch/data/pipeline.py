@@ -32,14 +32,14 @@ def _fold(seed: int, *vals: int) -> np.random.Generator:
 
 
 def lm_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
-             device=None) -> dict:
-    """The reference's numpy draw of int32 tokens [global_batch, seq_len]
-    (its single host, ``host_id`` 0) on ``device`` (default: the GPU);
+             device=None, host_id: int = 0, n_hosts: int = 1) -> dict:
+    """The reference's numpy draw of int32 tokens [global_batch / n_hosts,
+    seq_len], host ``host_id``'s rows, on ``device`` (default: the GPU);
     ``labels`` are the tokens (the loss shifts them)."""
     d = shape.dims
-    rng = _fold(seed, step, 0)
+    rng = _fold(seed, step, host_id)
     toks = rng.integers(0, arch.model_cfg.vocab,
-                        size=(d["global_batch"], d["seq_len"]),
+                        size=(d["global_batch"] // n_hosts, d["seq_len"]),
                         dtype=np.int32)
     toks = torch.from_numpy(toks).to(resolve_device(device))
     return {"tokens": toks, "labels": toks}
@@ -56,14 +56,14 @@ def gnn_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
 
 
 def recsys_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
-                 device=None) -> dict:
-    """The reference's numpy draws (its single host, ``host_id`` 0), in
-    its order, moved to ``device`` (default: the GPU)."""
+                 device=None, host_id: int = 0, n_hosts: int = 1) -> dict:
+    """The reference's numpy draws of host ``host_id``'s batch / n_hosts
+    rows, in its order, moved to ``device`` (default: the GPU)."""
     device = resolve_device(device)
     cfg = arch.model_cfg
-    b = shape.dims["batch"]
+    b = shape.dims["batch"] // n_hosts
     t, m = cfg.seq_len, cfg.profile_bag
-    rng = _fold(seed, step, 0)
+    rng = _fold(seed, step, host_id)
     batch = {
         "target_item": rng.integers(0, cfg.n_items, b, dtype=np.int32),
         "target_cat": rng.integers(0, cfg.n_cats, b, dtype=np.int32),
@@ -85,9 +85,13 @@ def recsys_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
 
 
 def make_batch(arch: Arch, shape: Shape, step: int, seed: int = 0,
-               device=None):
+               device=None, host_id: int = 0, n_hosts: int = 1):
+    """The step's batch, or host ``host_id``'s part of it of ``n_hosts``
+    (LM and recsys: each host draws its own rows, keyed by (seed, step,
+    host), so a host-to-slice assignment can be permuted without changing
+    the global batch; a GNN batch is whole)."""
     if arch.family in ("lm-dense", "lm-moe"):
-        return lm_batch(arch, shape, step, seed, device)
+        return lm_batch(arch, shape, step, seed, device, host_id, n_hosts)
     if arch.family == "gnn":
         return gnn_batch(arch, shape, step, seed, device)
-    return recsys_batch(arch, shape, step, seed, device=device)
+    return recsys_batch(arch, shape, step, seed, device, host_id, n_hosts)

@@ -19,16 +19,25 @@ The value codec (``values_finite``, ``compress_values``,
 ``decompress_values``) is the float twin for the distributed SSSP engines'
 MIN exchanges: ``inf`` is the MIN identity, so a slice ships its finite
 entries only, and decompression is a min-scatter onto an ``inf``
-background. The gradient codec waits for the distributed trainer (ROADMAP
-queue A item 9 (d)).
+background.
+
+The gradient codec (``init_error_state``, ``compress_tree``,
+``decompress_tree``, ``psum_compressed``) quantises each gradient tensor
+to int8 under one float32 scale (its largest magnitude over 127), with
+error feedback: the part the int8 payload could not carry is added to the
+next step's gradient. ``round`` is round-half-even, as the reference's.
+A tree is a nest of dicts with tensor leaves; a quantised leaf is the pair
+``(int8 payload, float32 scale)``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["DENSE_THRESHOLD", "compress_values", "compress_words",
-           "decompress_values", "decompress_words", "sparse_budget",
-           "values_finite", "words_nnz", "wire_bytes"]
+__all__ = ["DENSE_THRESHOLD", "compress_tree", "compress_values",
+           "compress_words", "decompress_tree", "decompress_values",
+           "decompress_words", "init_error_state", "psum_compressed",
+           "sparse_budget", "values_finite", "words_nnz", "wire_bytes"]
 
 # the sparse form wins while at most this fraction of words is nonzero: a
 # sparse slot costs an int32 index and the word, so at 4-byte words the
@@ -149,3 +158,74 @@ def decompress_values(idx: torch.Tensor, payload: torch.Tensor,
     flat = torch.full((num_values,), float("inf"), dtype=payload.dtype,
                       device=payload.device)
     return flat.index_reduce_(0, idx.long(), payload, "amin")
+
+
+# --------------------------------------------------------- gradient codec
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nests of dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def init_error_state(grads):
+    """Zero float32 error feedback shaped like each gradient."""
+    return _tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                           device=g.device), grads)
+
+
+def _scale(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+
+
+def _quant_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def _quant(x: torch.Tensor):
+    """(int8 payload, float32 scale) of a float32 tensor."""
+    scale = _scale(x)
+    return _quant_with(x, scale), scale
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_tree(grads, error_state):
+    """-> (quantised tree of (int8, scale), new error state): each leaf
+    quantises ``grad + error`` and keeps what the payload lost."""
+    def one(g, e):
+        x = g.to(torch.float32) + e
+        q, scale = _quant(x)
+        return (q, scale), x - _dequant(q, scale)
+    pairs = _tree_map(one, grads, error_state)
+    return (_tree_map(lambda p: p[0], pairs),
+            _tree_map(lambda p: p[1], pairs))
+
+
+def decompress_tree(qtree):
+    """The float32 tree of a quantised one."""
+    return _tree_map(lambda qs: _dequant(*qs), qtree)
+
+
+def psum_compressed(grads, error_state, group=None):
+    """int8 error-feedback sum over the ranks of ``group`` (default: the
+    whole process group): each leaf's scale is all-reduced (MAX) so every
+    rank quantises and dequantises alike, the int8 payloads are summed as
+    int32 (no overflow), and the sum is dequantised in the gradient's dtype.
+    Returns (summed gradients, new error state)."""
+    def one(g, e):
+        x = g.to(torch.float32) + e
+        scale = _scale(x)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        q = _quant_with(x, scale)
+        total = q.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return ((total.to(torch.float32) * scale).to(g.dtype),
+                x - _dequant(q, scale))
+    pairs = _tree_map(one, grads, error_state)
+    return (_tree_map(lambda p: p[0], pairs),
+            _tree_map(lambda p: p[1], pairs))

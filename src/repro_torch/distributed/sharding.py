@@ -15,16 +15,24 @@ dropped). ``tree_shardings`` turns it into each leaf's DTensor placements
 (one per mesh axis) and its shard shape on a device. A mesh is a
 ``DeviceMesh`` (a real one or one over a fake process group) or a mapping
 of axis name to size.
+
+``use_mesh(mesh)`` makes a mesh ambient, the counterpart of the
+reference's ``with mesh:``; ``ambient_axes_size`` and ``constrain`` read
+it inside model code. ``constrain`` redistributes a DTensor to the
+resolved placements. The sharded train step (``train/sharded.py``) hands
+the model each rank's own block as a plain tensor, already where the step
+put it, and ``constrain`` passes such a tensor through.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from collections.abc import Mapping
 from typing import Any, NamedTuple
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 # Ordered candidates per logical axis. Each candidate is a tuple of mesh
 # axes used jointly (their sizes multiply).
@@ -158,3 +166,53 @@ def tree_shardings(shapes_tree, specs_tree, mesh, rules=None) -> dict:
     return {".".join(map(str, path)): leaf_sharding(
                 t, _at(specs_tree, path), mesh, rules)
             for path, t in _tensor_leaves(shapes_tree)}
+
+
+# ------------------------------------------------------------ ambient mesh
+
+# the ``use_mesh`` stack: a process-wide list, not a context variable,
+# because autograd runs a CUDA backward (and the layers it recomputes) on a
+# thread of its own, which must see the mesh its forward saw
+_AMBIENT: list = [None]
+
+
+def mesh_size(mesh) -> int:
+    """Devices of a ``DeviceMesh`` (1 for None)."""
+    return 1 if mesh is None else math.prod(axis_sizes(mesh).values())
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh inside the block (None: no mesh)."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def ambient_mesh():
+    """The mesh of the innermost ``use_mesh``, or None."""
+    return _AMBIENT[-1]
+
+
+def ambient_axes_size(axes: tuple[str, ...] = ("model",)) -> int:
+    """Product of the named ambient-mesh axis sizes (1 when no mesh; an
+    axis the mesh lacks counts 1)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in axes)
+
+
+def constrain(x, logical, rules=None):
+    """Mesh-aware layout pin inside model code: a DTensor is redistributed
+    to ``resolve_spec``'s placements on the ambient mesh. Without an
+    ambient mesh of more than one device, and for a plain tensor (a rank's
+    own block), ``x`` comes back unchanged."""
+    mesh = ambient_mesh()
+    if mesh is None or mesh_size(mesh) <= 1 or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, leaf_sharding(x, logical, mesh,
+                                              rules).placements)

@@ -3,9 +3,7 @@
 the step's arguments are meta tensors (``configs/base.py::
 step_arg_specs``) and the mesh is a ``DeviceMesh`` over a fake process
 group of 256 or 512 ranks, which ``main`` starts for each mesh (the
-counterpart of the reference's fake host devices). ``main`` traces a
-step once a cell, one cell after another (its counts do not depend on the
-mesh), then resolves every cell on each mesh.
+counterpart of the reference's fake host devices).
 
 Each model cell records:
   * the arguments' bytes on one device, their logical specs resolved onto
@@ -13,19 +11,30 @@ Each model cell records:
     argument gives back (``alias_bytes``: params and optimizer state of a
     train step, the cache of a decode step);
   * ``model_flops_global`` and ``executed_flops_global``
-    (``launch/flops.py``) and the compute term from the executed FLOPs per
-    device;
-  * ``counted_flops_global``: ``launch/roofline.py::CountingMode`` over the
-    unsharded step traced on meta tensors at the global shapes (a decode
-    step given its cache length as a host int, which it reads on the host),
-    or None and ``counted_skip_reason`` where the step needs tensor values
-    (the GNN steps build their adjacency from the edges).
+    (``launch/flops.py``);
+  * the sharded step (``train/sharded.py``) traced on rank 0's meta
+    shards and batch block over the fake group under
+    ``launch/roofline.py::CountingMode``: per device its counted FLOPs,
+    HBM bytes, collectives (wire bytes, count and ``by_op``, the
+    reference's keys, and their seconds over NVLink inside a node and the
+    NIC across nodes), the bytes of its outputs and its temporaries (the
+    peak of live storage less the traced arguments), and the roofline
+    terms: compute from the larger of the counted and the executed FLOPs a
+    device, memory from the HBM bytes, collective from the wire seconds.
+    An LM of more than 3 layers is traced at 2 and 3 layers and every
+    count, the peak included, taken at its layer count (its layers are
+    alike and each is gathered, run and freed alike, so the counts are
+    affine in the layer count; ``sharded.rule`` says so);
+  * ``counted_flops_global``: ``CountingMode`` over the unsharded step
+    at the global shapes (a decode step given its cache length as a host
+    int, which it reads on the host), the same affine rule at 1 and 2
+    layers.
 
-The memory, HBM and collective terms on a production mesh need the
-sharded step, which is not ported: such a cell is ``status: "skipped"``
-with a ``skip_reason`` naming ROADMAP A9 (d), beside the fields above. A
-shape the reference skips keeps its reason. A cell that raises is recorded
-as ``"error"`` and the run exits nonzero.
+A cell whose step needs tensor values (the GNN adjacency's ``nonzero``)
+is ``status: "skipped"`` with a ``skip_reason`` naming that op, beside
+the fields above; every other cell that traced is ``"ok"``. A shape the
+reference skips keeps its reason. A cell that raises is recorded as
+``"error"`` and the run exits nonzero.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
       --shape train_4k
@@ -48,12 +57,9 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.bfs_dryrun import DEFAULT_OUT
 from repro_torch.launch.flops import analytic_flops
 from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+from repro_torch.train.sharded import make_sharded_step
 
-SHARDED_STEP_SKIP = (
-    "the memory, HBM and collective terms on a production mesh need the "
-    "sharded step, which is not ported yet (ROADMAP A9 (d)); argument bytes "
-    "per device, analytic and counted FLOPs and the compute term are "
-    "recorded")
+_LM = ("lm-dense", "lm-moe")
 
 
 def _mesh_tag(multi_pod: bool) -> str:
@@ -104,6 +110,57 @@ def counted_step(arch, shape) -> dict:
                 trace_s=round(time.time() - t0, 2))
 
 
+def _layers(arch, k: int):
+    return dataclasses.replace(arch, model_cfg=dataclasses.replace(
+        arch.model_cfg, n_layers=k))
+
+
+def _trace_sharded(arch, shape, mesh) -> dict:
+    """One sharded step on rank 0's meta shards under ``CountingMode``."""
+    args, _ = step_arg_specs(arch, shape)
+    step = make_sharded_step(arch, shape, mesh)
+    batch = step.shard_batch(args[-1])
+    if shape.kind == "decode":       # the step reads cache_len on the host
+        batch["cache_len"] = shape.dims["seq_len"] - 1
+    if shape.kind == "train":
+        call = (*step.place(args[0], args[1]), batch)
+    else:
+        call = (step.place(args[0]), batch)
+    with rl.CountingMode() as cm:
+        cm.hold(call)
+        held = cm.live_bytes
+        out = step(*call)
+    c = cm.collectives
+    return dict(flops=cm.flops, hbm=cm.hbm_bytes, peak=cm.peak_bytes,
+                held=held, output=rl._nbytes(rl._tensors(out)),
+                wire=c.wire_bytes, seconds=c.seconds, count=c.count,
+                by_op={k: dict(v) for k, v in c.by_op.items()},
+                mode=step.mode)
+
+
+def sharded_terms(arch, shape, mesh) -> dict:
+    """``_trace_sharded``, an LM of more than 3 layers at 2 and 3 layers
+    and taken affinely at its layer count."""
+    t0 = time.time()
+    n = arch.model_cfg.n_layers if arch.family in _LM else 0
+    if n > 3:
+        two, three = (_trace_sharded(_layers(arch, k), shape, mesh)
+                      for k in (2, 3))
+
+        def at(a, b):
+            return a + (n - 2) * (b - a)
+        t = {k: at(two[k], three[k]) if isinstance(two[k], (int, float))
+             else two[k] for k in two}
+        t["by_op"] = {op: {k: at(v[k], three["by_op"][op][k])
+                           for k in v} for op, v in two["by_op"].items()}
+        rule = "traced at 2 and 3 layers, affine in the layer count"
+    else:
+        t = _trace_sharded(arch, shape, mesh)
+        rule = "traced whole"
+    t.update(rule=rule, trace_s=round(time.time() - t0, 2))
+    return t
+
+
 def mesh_record(arch, shape, multi_pod: bool, donate: bool = True) -> dict:
     """A cell's record without its counted fields, on the production mesh
     over the process group the caller started."""
@@ -125,17 +182,38 @@ def mesh_record(arch, shape, multi_pod: bool, donate: bool = True) -> dict:
     an = analytic_flops(arch, shape)
     exec_per_dev = an["executed_flops"] / n_dev
     rec.update(
-        status="skipped", skip_reason=SHARDED_STEP_SKIP, n_devices=n_dev,
-        donate=donate,
+        n_devices=n_dev, donate=donate,
         model_flops_global=an["model_flops"],
         executed_flops_global=an["executed_flops"],
         executed_flops_per_device=exec_per_dev,
         memory=dict(argument_bytes=sum(s.local_bytes
                                        for s in shardings.values()),
                     alias_bytes=alias, output_bytes=None, temp_bytes=None),
-        roofline=dict(compute_s=exec_per_dev / rl.PEAK_FLOPS, memory_s=None,
-                      collective_s=None, dominant=None,
-                      step_time_bound_s=None, roofline_fraction=None),
+    )
+    try:
+        t = sharded_terms(arch, shape, mesh)
+    except rl.DataDependentOp as e:
+        rec.update(status="skipped",
+                   skip_reason=f"the sharded step runs {e}, which meta "
+                               f"tensors cannot give",
+                   roofline=dict(compute_s=exec_per_dev / rl.PEAK_FLOPS,
+                                 memory_s=None, collective_s=None,
+                                 dominant=None, step_time_bound_s=None,
+                                 roofline_fraction=None))
+        return rec
+    rec["memory"].update(output_bytes=t["output"],
+                         temp_bytes=t["peak"] - t["held"],
+                         traced_argument_bytes=t["held"],
+                         peak_bytes=t["peak"])
+    rec.update(
+        status="ok", flops_per_device=t["flops"],
+        hbm_bytes_per_device=t["hbm"],
+        collective=dict(wire_bytes_per_device=t["wire"],
+                        num_collectives=t["count"], by_op=t["by_op"],
+                        seconds=t["seconds"]),
+        roofline=rl.roofline_terms(max(t["flops"], exec_per_dev), t["hbm"],
+                                   t["wire"], collective_s=t["seconds"]),
+        sharded=dict(mode=t["mode"], rule=t["rule"], trace_s=t["trace_s"]),
     )
     return rec
 
@@ -171,13 +249,15 @@ def _report(tag: str, rec: dict) -> None:
     extra = ""
     if rec["status"] == "error":
         extra = " " + rec["error"][:120]
+    elif rec["status"] == "ok":
+        m, t = rec["memory"], rec["roofline"]
+        extra = (f" args={m['argument_bytes'] / 1e9:.2f}GB/dev"
+                 f" peak={m['peak_bytes'] / 1e9:.2f}GB/dev"
+                 f" {t['dominant']}={t['step_time_bound_s']:.4f}s"
+                 f" ({rec['sharded']['mode']}, "
+                 f"{rec['sharded']['trace_s']}s)")
     elif "memory" in rec:
-        c = rec["counted_flops_global"]
-        extra = (f" args={rec['memory']['argument_bytes'] / 1e9:.2f}"
-                 f"GB/dev compute={rec['roofline']['compute_s']:.4f}s"
-                 " counted/executed="
-                 + (f"{c / rec['executed_flops_global']:.3f}"
-                    if c is not None else "-"))
+        extra = " " + rec["skip_reason"][:80]
     print(f"[{rec['status']:7s}] {tag}{extra}", flush=True)
 
 

@@ -30,7 +30,10 @@ sent:
   HBM bytes   the reference's model: every op writes its outputs and reads
               its inputs, a view writes nothing, an in-place op writes the
               tensor it mutates (a slice only the slice) and reads the rest;
-  collectives every c10d op: its kind, result bytes and group size;
+  collectives every c10d op and every functional collective
+              (``_c10d_functional``: what DTensor and the sharded step
+              dispatch; ``wait_tensor`` moves nothing): its kind, result
+              bytes and group size;
   peak live   the most bytes of storage alive at once, the tensors held
               when counting starts (``hold``) included.
 
@@ -43,6 +46,7 @@ raises ``DataDependentOp``.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from dataclasses import dataclass, field
 
@@ -131,6 +135,19 @@ _HOST_READS = (aten._local_scalar_dense.default,)
 # allocation without a write
 _NO_WRITE = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided"}
+# functional collective (``_c10d_functional``, what DTensor and
+# ``torch.distributed._functional_collectives`` dispatch) -> its kind; the
+# result is the op's output, the input its first argument. The namespace's
+# other ops (``wait_tensor``) hand their input back: no collective and no
+# bytes.
+_FUNCTIONAL = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "all-gather"}
 # c10d op -> (kind, index of its result arg, index of its input arg)
 _C10D = {"allreduce_": ("all-reduce", 0, 0),
          "_allgather_base_": ("all-gather", 0, 1),
@@ -144,7 +161,8 @@ _C10D = {"allreduce_": ("all-reduce", 0, 0),
 
 
 def _tensors(x, out=None) -> list:
-    """The tensors in a nest of tuples, lists and dicts."""
+    """The tensors in a nest of tuples, lists, dicts and dataclasses (a
+    ``GraphBatch``)."""
     out = [] if out is None else out
     if isinstance(x, torch.Tensor):
         out.append(x)
@@ -154,6 +172,9 @@ def _tensors(x, out=None) -> list:
     elif isinstance(x, dict):
         for v in x.values():
             _tensors(v, out)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            _tensors(getattr(x, f.name), out)
     return out
 
 
@@ -171,15 +192,29 @@ def _process_group(args):
     raise ValueError("a c10d op without a process group")
 
 
+def _named_group(args):
+    """A functional collective's group: its last string argument names
+    it."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name)
+
+
 class _OpInfo:
     """What the counting needs of one op overload, read once."""
 
     def __init__(self, func):
         packet = func._overloadpacket
         self.c10d = func.namespace == "c10d"
+        self.functional = (_FUNCTIONAL.get(packet.__name__)
+                           if func.namespace == "_c10d_functional" else None)
+        # wait_tensor, _wrap_tensor_autograd: the input handed back
+        self.alias = (func.namespace == "_c10d_functional"
+                      and self.functional is None)
         self.flops = flop_registry.get(packet)
         self.view = func.is_view or packet.__name__ in _NO_WRITE
         self.composite = (self.flops is None and not self.c10d
+                          and func.namespace != "_c10d_functional"
                           and func.has_kernel_for_dispatch_key(
                               torch._C.DispatchKey.CompositeImplicitAutograd))
         names = [a.name for a in func._schema.arguments]
@@ -233,6 +268,15 @@ class CountingMode(TorchDispatchMode):
                              group_link_bw(dist.get_process_group_ranks(pg)))
         self.hbm_bytes += result + _nbytes(_tensors(args[in_i]))
 
+    def _functional(self, kind: str, args, out) -> None:
+        pg = _named_group(args)
+        result = _nbytes(_tensors(out))
+        self.collectives.add(kind, wire_bytes(kind, result, pg.size()),
+                             group_link_bw(dist.get_process_group_ranks(pg)))
+        self.hbm_bytes += result + _nbytes(_tensors(args[0]))
+        for t in _tensors(out):
+            self._track(t)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func in _HOST_READS:
@@ -257,6 +301,11 @@ class CountingMode(TorchDispatchMode):
         self.ops += 1
         if info.c10d:
             self._collective(func, args)
+            return out
+        if info.functional:
+            self._functional(info.functional, args, out)
+            return out
+        if info.alias:
             return out
         if info.flops is not None:
             self.flops += info.flops(*args, **kwargs, out_val=out)

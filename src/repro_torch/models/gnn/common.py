@@ -20,6 +20,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.core.csr import CSRGraph, ell_pad, from_edge_tensors
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.kernels.ell_spmm.ops import spmm_aggregate
 
 ELL_K_MAX = 16  # slab width, the reference's spmm_aggregate default
@@ -52,22 +53,28 @@ class GraphBatch:
 def aggregate(messages: torch.Tensor, receivers: torch.Tensor, n_nodes: int,
               edge_mask: torch.Tensor | None = None,
               op: str = "sum") -> torch.Tensor:
-    """Scatter-reduce edge messages to nodes."""
+    """Scatter-reduce edge messages to nodes. Under a split mesh the edges
+    are the rank's own, ``n_nodes`` the graph's, and the sums (and counts)
+    are reduce-scattered to the rank's block of nodes."""
     shape = (-1,) + (1,) * (messages.dim() - 1)
     if edge_mask is not None:
         messages = torch.where(edge_mask.reshape(shape), messages, 0)
     idx = receivers.long()
     out = (n_nodes,) + tuple(messages.shape[1:])
     if op in ("sum", "mean"):
-        s = messages.new_zeros(out).index_add(0, idx, messages)
+        s = spmd.scatter_nodes(messages.new_zeros(out).index_add(
+            0, idx, messages))
         if op == "sum":
             return s
         ones = torch.ones(messages.shape[0], dtype=torch.float32,
                           device=messages.device)
         if edge_mask is not None:
             ones = torch.where(edge_mask, ones, 0.0)
-        cnt = ones.new_zeros(n_nodes).index_add(0, idx, ones)
+        cnt = spmd.scatter_nodes(ones.new_zeros(n_nodes).index_add(
+            0, idx, ones))
         return s / torch.clamp(cnt, min=1.0).reshape(shape)
+    if spmd.split() is not None:
+        raise NotImplementedError(f"aggregate op={op!r} on a split mesh")
     if op == "max":
         init = messages.new_full(out, float("-inf"))
         expand = idx.reshape(shape).expand_as(messages)
@@ -82,13 +89,15 @@ def degrees(gb: GraphBatch) -> torch.Tensor:
 
 def graph_pool(node_values: torch.Tensor, gb: GraphBatch,
                op: str = "sum") -> torch.Tensor:
-    """Pool node values to per-graph values: [N, ...] -> [G, ...]."""
+    """Pool node values to per-graph values: [N, ...] -> [G, ...] (summed
+    over the ranks under a split mesh)."""
     if op != "sum":
         raise ValueError(op)
     shape = (-1,) + (1,) * (node_values.dim() - 1)
     vals = torch.where(gb.node_mask.reshape(shape), node_values, 0)
     out = (gb.n_graphs,) + tuple(node_values.shape[1:])
-    return vals.new_zeros(out).index_add(0, gb.graph_ids.long(), vals)
+    return spmd.sum_all(vals.new_zeros(out).index_add(
+        0, gb.graph_ids.long(), vals))
 
 
 def synthetic_graph_batch(gen: torch.Generator, n_nodes: int, n_edges: int,
@@ -156,15 +165,37 @@ class Adjacency(NamedTuple):
     k_max: int
 
 
-def build_adjacency(gb: GraphBatch, k_max: int = ELL_K_MAX) -> Adjacency:
-    """Both CSRs and their slabs, built on the batch's device; masked edges
-    are dropped, direction and multi-edges kept. Two host syncs (the live
-    edge count of each CSR)."""
-    snd, rcv, n = gb.senders, gb.receivers, gb.n_nodes
-    fwd = from_edge_tensors(rcv, snd, gb.edge_mask, n)
-    bwd = from_edge_tensors(snd, rcv, gb.edge_mask, n)
+def edge_adjacency(senders: torch.Tensor, receivers: torch.Tensor,
+                   edge_mask: torch.Tensor, n_nodes: int,
+                   k_max: int = ELL_K_MAX) -> Adjacency:
+    """Both CSRs of the given edges over ``n_nodes`` rows and their slabs,
+    built on the edges' device; masked edges are dropped, direction and
+    multi-edges kept. Two host syncs (the live edge count of each CSR)."""
+    fwd = from_edge_tensors(receivers, senders, edge_mask, n_nodes)
+    bwd = from_edge_tensors(senders, receivers, edge_mask, n_nodes)
     return Adjacency(fwd=fwd, fwd_ell=ell_pad(fwd, k_max), bwd=bwd,
                      bwd_ell=ell_pad(bwd, k_max), k_max=k_max)
+
+
+def build_adjacency(gb: GraphBatch, k_max: int = ELL_K_MAX) -> Adjacency:
+    """``edge_adjacency`` of the batch's edges over all its nodes (under a
+    split mesh, over the graph's ``global_nodes``)."""
+    return edge_adjacency(gb.senders, gb.receivers, gb.edge_mask,
+                          global_nodes(gb), k_max)
+
+
+def global_nodes(gb: GraphBatch) -> int:
+    """The graph's node count: the batch's, times the ranks of the
+    ambient mesh's split (``distributed/spmd.py``) when it holds one block
+    of them."""
+    sp = spmd.split()
+    return gb.n_nodes * (1 if sp is None else sp.n)
+
+
+def graph_targets(gb: GraphBatch) -> torch.Tensor:
+    """The graph-level targets, the first ``n_graphs`` node labels of the
+    whole graph (all-gathered under a split mesh)."""
+    return spmd.gather_all(gb.labels)[:gb.n_graphs]
 
 
 class SumAggregate(torch.autograd.Function):

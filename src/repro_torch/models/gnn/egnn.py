@@ -8,9 +8,12 @@ h_i' = h_i + phi_h(h_i, sum_j m_ij)
 Scalars only in the MLPs; coordinates move along relative vectors, so the
 model is exactly equivariant to rotations and translations. Both
 aggregations scatter per-edge messages (``common.aggregate``, mean for the
-coordinates, sum for the features). Parameters are a flat dict named as the
-reference's tree: ``embed.w`` / ``.b``, ``layers.{i}.{phi_e,phi_x,phi_h}.
-{j}.w`` / ``.b`` and ``readout.{j}.w`` / ``.b``.
+coordinates, sum for the features); under the sharded step each rank's
+edges read both ends from all-gathered features and positions, and the
+sums are reduce-scattered to the rank's nodes. Parameters are a flat dict
+named as the reference's tree: ``embed.w`` / ``.b``,
+``layers.{i}.{phi_e,phi_x,phi_h}.{j}.w`` / ``.b`` and ``readout.{j}.w`` /
+``.b``.
 """
 from __future__ import annotations
 
@@ -19,8 +22,11 @@ from dataclasses import dataclass
 import torch
 from torch.nn import functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
-from repro_torch.models.gnn.common import GraphBatch, aggregate, graph_pool
+from repro_torch.models.gnn.common import (GraphBatch, aggregate,
+                                           global_nodes, graph_pool,
+                                           graph_targets)
 from repro_torch.models.params import flatten, prefixed, unflatten
 
 
@@ -60,12 +66,15 @@ def egnn_forward(params: dict, gb: GraphBatch, cfg: EGNNConfig):
     p = unflatten(params)
     h = L.apply_dense(p["embed"], gb.feats)
     x = gb.pos
-    n = gb.n_nodes
+    n = global_nodes(gb)
     snd, rcv = gb.senders.long(), gb.receivers.long()
     for lp in p["layers"]:
-        diff = x[rcv] - x[snd]
+        # both ends of the rank's edges (all the nodes under a split mesh)
+        x_all, h_all = spmd.gather_nodes(x), spmd.gather_nodes(h)
+        diff = x_all[rcv] - x_all[snd]
         d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-        m = L.apply_mlp(lp["phi_e"], torch.cat([h[rcv], h[snd], d2], -1),
+        m = L.apply_mlp(lp["phi_e"],
+                        torch.cat([h_all[rcv], h_all[snd], d2], -1),
                         act="silu")
         m = F.silu(m)
         w = L.apply_mlp(lp["phi_x"], m, act="silu")
@@ -78,6 +87,6 @@ def egnn_forward(params: dict, gb: GraphBatch, cfg: EGNNConfig):
 
 def egnn_loss(params: dict, gb: GraphBatch, cfg: EGNNConfig):
     _, _, energy = egnn_forward(params, gb, cfg)
-    target = gb.labels[:gb.n_graphs].to(torch.float32)
-    loss = torch.mean((energy - target) ** 2)
+    target = graph_targets(gb).to(torch.float32)
+    loss = spmd.split_mean((energy - target) ** 2)
     return loss, {"mse": loss}

@@ -3,10 +3,13 @@
 
 Parameters are a flat dict named as the reference's tree,
 ``layers.{i}.w`` [d_in, d_out] and ``layers.{i}.b`` [d_out]. ``norm="sym"``
-aggregates ``h * inv_sqrt`` through ``common.sum_aggregate`` (the ELL slab
-kernel and its residue fold, forward and backward); ``norm="mean"`` keeps
-the reference's segment mean. ``deg`` is the in-degree over live edges
-plus 1, as the reference counts it.
+aggregates ``h * inv_sqrt`` through ``distributed/aggregate.py::
+owner_gather_scatter``, as the reference does: without a mesh that is
+``common.sum_aggregate`` (the ELL slab kernel and its residue fold, forward
+and backward); under the sharded step, the same kernels over a CSR of the
+rank's own edges between an all-gather and a reduce-scatter.
+``norm="mean"`` keeps the reference's segment mean. ``deg`` is the
+in-degree over live edges plus 1, as the reference counts it.
 """
 from __future__ import annotations
 
@@ -16,10 +19,12 @@ from typing import Callable
 import torch
 from torch import nn
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.aggregate import masked, owner_gather_scatter
 from repro_torch.kernels.ell_spmm.ops import spmm_aggregate
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import (Adjacency, GraphBatch, aggregate,
-                                           build_adjacency, sum_aggregate)
+                                           build_adjacency, global_nodes)
 from repro_torch.models.params import (opt_state_from_numpy,  # noqa: F401
                                        params_from_numpy)
 
@@ -63,22 +68,26 @@ def gcn_forward(params: dict, gb: GraphBatch, cfg: GCNConfig,
     """Logits [N, n_classes]. ``adj`` passes the batch's adjacency when it
     is already built; ``impl`` is the sum aggregation (the kernels by
     default, ``spmm_aggregate_ref`` for the plain one)."""
-    n = gb.n_nodes
+    n = global_nodes(gb)
     if cfg.norm == "sym":
         if adj is None:
             adj = build_adjacency(gb)
-        deg = adj.fwd.deg.to(torch.float32) + 1.0
+        deg = spmd.scatter_nodes(adj.fwd.deg.to(torch.float32)) + 1.0
         inv_sqrt = torch.rsqrt(deg)[:, None]
     h = gb.feats
     for i in range(cfg.n_layers):
         h = L.apply_dense({"w": params[f"layers.{i}.w"],
                            "b": params[f"layers.{i}.b"]}, h)
         if cfg.norm == "sym":
+            # the sym-norm factor folds into the node features, so the
+            # edge function stays a masked identity
             hs = h * inv_sqrt
-            h = (sum_aggregate(hs, adj, impl) + hs) * inv_sqrt
+            agg = owner_gather_scatter(hs, gb.senders, gb.receivers,
+                                       gb.edge_mask, masked, n, adj, impl)
+            h = (agg + hs) * inv_sqrt
         else:
-            agg = aggregate(h[gb.senders.long()], gb.receivers, n,
-                            gb.edge_mask, op="mean")
+            agg = aggregate(spmd.gather_nodes(h)[gb.senders.long()],
+                            gb.receivers, n, gb.edge_mask, op="mean")
             h = agg + h
         if i < cfg.n_layers - 1:
             h = torch.relu(h)

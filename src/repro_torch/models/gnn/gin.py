@@ -5,11 +5,13 @@ h' = MLP( (1 + eps) * h + sum_{j in N(i)} h_j ). Graph-level readout: sum
 pooling of every layer's representation (the paper's jumping-knowledge
 readout), a linear classifier per layer, summed.
 
-The neighbour sum of every layer runs through ``common.sum_aggregate`` (the
-ELL slab kernel and its residue fold, forward and backward) over the
-adjacency ``build_adjacency`` makes once a batch. Layer 0 sums the input
-features, which need no gradient, so a step launches each kernel
-``n_layers`` times forward and ``n_layers - 1`` times backward.
+The neighbour sum of every layer runs through ``distributed/aggregate.py::
+owner_gather_scatter`` as the reference's does: without a mesh,
+``common.sum_aggregate`` (the ELL slab kernel and its residue fold, forward
+and backward) over the adjacency ``build_adjacency`` makes once a batch;
+under the sharded step, the same kernels over the rank's own edges. Layer
+0 sums the input features, which need no gradient, so a step launches each
+kernel ``n_layers`` times forward and ``n_layers - 1`` times backward.
 Parameters are a flat dict named as the reference's tree: ``eps``
 [n_layers], ``mlps.{i}.{j}.w`` / ``.b`` and ``heads.{i}.w`` / ``.b``.
 """
@@ -20,11 +22,12 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.aggregate import masked, owner_gather_scatter
 from repro_torch.kernels.ell_spmm.ops import spmm_aggregate
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import (Adjacency, GraphBatch,
-                                           build_adjacency, graph_pool,
-                                           sum_aggregate)
+                                           build_adjacency, global_nodes,
+                                           graph_pool, graph_targets)
 from repro_torch.models.params import flatten, prefixed, unflatten
 
 
@@ -72,10 +75,12 @@ def gin_forward(params: dict, gb: GraphBatch, cfg: GINConfig,
     p = unflatten(params)
     if adj is None:
         adj = build_adjacency(gb)
+    n = global_nodes(gb)
     h = gb.feats
     out = None
     for i in range(cfg.n_layers):
-        agg = sum_aggregate(h, adj, impl)
+        agg = owner_gather_scatter(h, gb.senders, gb.receivers, gb.edge_mask,
+                                   masked, n, adj, impl)
         h = (1.0 + p["eps"][i]) * h + agg
         h = L.apply_mlp(p["mlps"][i], h, act="relu")
         h = torch.relu(h)
@@ -90,7 +95,7 @@ def gin_loss(params: dict, gb: GraphBatch, cfg: GINConfig,
              impl: Callable = spmm_aggregate):
     logits = gin_forward(params, gb, cfg, adj, impl)
     if cfg.task == "graph":
-        loss = L.softmax_xent(logits, gb.labels[:gb.n_graphs])
+        loss = L.softmax_xent(logits, graph_targets(gb))
     else:
         loss = L.softmax_xent(logits, gb.labels, gb.node_mask)
     return loss, {"xent": loss}

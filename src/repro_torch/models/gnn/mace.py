@@ -19,7 +19,9 @@ The three-operand contractions are taken two operands at a time, so no
 per edge; B2 and B3 contract the left factor with G ([N, C, 9, 9]) and then
 sum over ``b`` per node and channel. The sums are the
 reference's in another order. ``cfg.remat`` recomputes each interaction
-layer in the backward (``torch.utils.checkpoint``). Parameters are a flat
+layer in the backward (``torch.utils.checkpoint``). The aggregation runs
+through ``distributed/aggregate.py::owner_gather_scatter`` and A and H are
+``constrain``ed to the node sharding, as the reference's. Parameters are a flat
 dict named as the reference's tree: ``embed.w`` / ``.b``,
 ``layers.{t}.radial.{j}.w`` / ``.b``, ``layers.{t}.w1`` / ``w2`` / ``w3``
 [3, C, C] and ``readout.{j}.w`` / ``.b``.
@@ -33,8 +35,12 @@ import torch
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.aggregate import owner_gather_scatter
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
-from repro_torch.models.gnn.common import GraphBatch, graph_pool
+from repro_torch.models.gnn.common import (GraphBatch, global_nodes,
+                                           graph_pool, graph_targets)
 from repro_torch.models.gnn.sph import LS, N_COMP, gaunt_tensor, real_sph
 from repro_torch.models.params import flatten, prefixed, unflatten
 
@@ -116,20 +122,28 @@ def _couple(x: torch.Tensor, a: torch.Tensor, g: torch.Tensor):
     return (a[..., None] * xg).sum(dim=-2)
 
 
+def _message(hj: torch.Tensor, edge_data) -> torch.Tensor:
+    """The message tensor product (H_j ⊗ Y)_o through the Gaunt coupling,
+    weighted by the radial channels: [E, C, 9]."""
+    yg, radial = edge_data
+    return torch.bmm(hj, yg) * radial[:, :, None]
+
+
 def mace_forward(params: dict, gb: GraphBatch, cfg: MACEConfig):
     """Returns (H [N, C, 9], energy [G])."""
     p = unflatten(params)
     adt = getattr(torch, cfg.dtype)
     dev = gb.feats.device
     g = torch.from_numpy(gaunt_tensor()).to(dev, adt)           # [9, 9, 9]
-    n, c = gb.n_nodes, cfg.d_hidden
+    n_loc, n, c = gb.n_nodes, global_nodes(gb), cfg.d_hidden
     snd, rcv = gb.senders.long(), gb.receivers.long()
 
     h0 = F.silu(gb.feats @ p["embed"]["w"] + p["embed"]["b"])
     H = torch.cat([h0.to(adt)[:, :, None],
-                   h0.new_zeros((n, c, N_COMP - 1), dtype=adt)], dim=2)
+                   h0.new_zeros((n_loc, c, N_COMP - 1), dtype=adt)], dim=2)
 
-    rel = gb.pos[rcv] - gb.pos[snd]
+    pos = spmd.gather_nodes(gb.pos)      # both ends of the rank's edges
+    rel = pos[rcv] - pos[snd]
     r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-18)
     rbf = bessel_basis(r, cfg.n_rbf, cfg.r_cut)                # [E, n_rbf]
     y = real_sph(rel / torch.clamp(r, min=1e-6)[:, None])       # [E, 9]
@@ -145,16 +159,18 @@ def mace_forward(params: dict, gb: GraphBatch, cfg: MACEConfig):
 
     def layer(H, lp):
         radial = L.apply_mlp(lp["radial"], rbf, act="silu").to(adt)
-        # message tensor product (H_j ⊗ Y)_o through the Gaunt coupling
-        msg = torch.bmm(H[snd], yg) * radial[:, :, None]        # [E, C, 9]
-        A = msg.new_zeros((n, c, N_COMP)).index_add(0, rcv, msg)
+        # owner-aligned exchange: one all-gather of H forward and one
+        # reduce-scatter, and their transposes backward
+        A = owner_gather_scatter(H, gb.senders, gb.receivers, (yg, radial),
+                                 _message, n)
+        A = constrain(A, ("nodes", None, None))
         # higher-order (symmetric) products: correlation 2 and 3
         B2 = _couple(A, A, g)
         B3 = _couple(B2, A, g)
         upd = (_per_l_mix(lp["w1"].to(adt), A)
                + _per_l_mix(lp["w2"].to(adt), B2)
                + _per_l_mix(lp["w3"].to(adt), B3))
-        return H + upd
+        return constrain(H + upd, ("nodes", None, None))
 
     for lp in p["layers"]:
         if cfg.remat:
@@ -169,6 +185,6 @@ def mace_forward(params: dict, gb: GraphBatch, cfg: MACEConfig):
 
 def mace_loss(params: dict, gb: GraphBatch, cfg: MACEConfig):
     _, energy = mace_forward(params, gb, cfg)
-    target = gb.labels[:gb.n_graphs].to(torch.float32)
-    loss = torch.mean((energy - target) ** 2)
+    target = graph_targets(gb).to(torch.float32)
+    loss = spmd.split_mean((energy - target) ** 2)
     return loss, {"mse": loss}

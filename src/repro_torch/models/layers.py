@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import ambient_axes_size, constrain
 from repro_torch.models.params import prefixed
 
 
@@ -123,17 +125,32 @@ def gqa_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 
     The scores are formed in the activation dtype and then taken to
     float32, the softmax is float32 and its probabilities go back to
-    ``q``'s dtype before the second product, as the reference's. ``seq_pin``
-    only places the scores on a mesh in the reference; on one device it
-    does nothing.
+    ``q``'s dtype before the second product, as the reference's.
+
+    The layout pins are the reference's: the group dim on the model axis
+    when it divides, else (with ``seq_pin``) the q-seq dim; a partial pin
+    on an indivisible dim would force de-sharding, hence the guards. They
+    act on DTensors under an ambient mesh (``sharding.constrain``).
     """
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
+    msize = ambient_axes_size(("model",))
+    pin_heads = msize > 1 and g % msize == 0
+    pin_seq = (seq_pin and msize > 1 and not pin_heads
+               and sq % msize == 0)
+    if pin_heads:
+        qg = constrain(qg, ("batch", None, None, "heads", None))
+    elif pin_seq:
+        qg = constrain(qg, ("batch", "kv_seq", None, None, None))
     scale = float(1.0 / np.sqrt(dh))
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(
         torch.float32) * scale
+    if pin_heads:
+        logits = constrain(logits, ("batch", None, "heads", None, None))
+    elif pin_seq:
+        logits = constrain(logits, ("batch", None, None, "kv_seq", None))
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -144,6 +161,35 @@ def gqa_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                              MASKED)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    if pin_heads:
+        out = constrain(out, ("batch", None, None, "heads", None))
+    elif pin_seq:
+        out = constrain(out, ("batch", "kv_seq", None, None, None))
+    return out.reshape(b, sq, hq, dh)
+
+
+def gqa_attention_split_kv(q, k, v, *, kv_len_mask):
+    """``gqa_attention`` (not causal) over a cache whose slots are split in
+    chunks over the model axis of the ambient mesh: ``k``, ``v``
+    [B, Skv / M, Hkv, Dh] and ``kv_len_mask`` are this rank's chunk. The
+    softmax's max and denominator are reduced over the axis before the
+    probabilities are formed, so each rank's share of the second product
+    is the unsharded one's, and the shares are summed."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    scale = float(1.0 / np.sqrt(dh))
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(
+        torch.float32) * scale
+    logits = torch.where(kv_len_mask[:, None, None, None, :], logits,
+                         MASKED)
+    m = spmd.model_reduce(logits.amax(-1, keepdim=True), "max")
+    e = torch.exp(logits - m)
+    probs = (e / spmd.model_reduce(e.sum(-1, keepdim=True), "sum")).to(
+        q.dtype)
+    out = spmd.model_reduce(torch.einsum("bhgqk,bkhd->bqhgd", probs, v),
+                            "sum")
     return out.reshape(b, sq, hq, dh)
 
 
@@ -288,12 +334,10 @@ def apply_mlp(params: list, x: torch.Tensor, act: str = "relu",
 
 
 def softmax_xent(logits, labels, mask=None) -> torch.Tensor:
-    """Mean cross-entropy in float32. logits [..., V], labels int[...]."""
+    """Mean cross-entropy in float32. logits [..., V], labels int[...].
+    Under a split mesh, this rank's share (``spmd.split_mean``)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
-    if mask is not None:
-        mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+    return spmd.split_mean(nll, mask)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.params import flatten, prefixed, unflatten
 
@@ -189,7 +190,7 @@ def _aux_loss(p, states, batch, cfg: DIENConfig):
     m = batch["hist_mask"][:, 1:].to(torch.float32)
     lp = F.logsigmoid(torch.sum(proj * pos_it, -1))
     ln = F.logsigmoid(-torch.sum(proj * neg_it, -1))
-    return -torch.sum((lp + ln) * m) / torch.clamp(torch.sum(m), min=1.0)
+    return -spmd.split_mean(lp + ln, m)
 
 
 def dien_loss(params: dict, batch, cfg: DIENConfig):
@@ -197,8 +198,8 @@ def dien_loss(params: dict, batch, cfg: DIENConfig):
     hT, states, behav, feats = _user_state(p, batch, cfg)
     logit = L.apply_mlp(p["mlp"], feats, act="relu")[:, 0]
     y = batch["labels"].to(torch.float32)
-    bce = -torch.mean(y * F.logsigmoid(logit)
-                      + (1 - y) * F.logsigmoid(-logit))
+    bce = -spmd.split_mean(y * F.logsigmoid(logit)
+                           + (1 - y) * F.logsigmoid(-logit))
     if cfg.use_aux_loss and "neg_items" in batch:
         aux = _aux_loss(p, states, batch, cfg)
     else:
@@ -214,7 +215,17 @@ def dien_retrieval(params: dict, batch, cfg: DIENConfig, top_k: int = 100):
     p = unflatten(params)
     hT, _, _, _ = _user_state(p, batch, cfg)
     user_vec = L.apply_dense(p["user_proj"], hT)         # [B, e]
-    cand = p["item_table"][batch["candidate_ids"].long()]  # [Nc, e]
+    ids = batch["candidate_ids"]
+    cand = p["item_table"][ids.long()]                   # [Nc, e]
     scores = user_vec @ cand.T                           # [B, Nc]
-    _, top = torch.topk(scores, top_k, dim=-1, sorted=True)
-    return scores, top
+    if spmd.split() is None:
+        _, top = torch.topk(scores, top_k, dim=-1, sorted=True)
+        return scores, top
+    # a block of the candidates a rank: its own best, then the best of
+    # every rank's (scores: this rank's block)
+    val, at = torch.topk(scores, min(top_k, scores.shape[1]), dim=-1,
+                         sorted=True)
+    val = spmd.gather_all(val.transpose(0, 1).contiguous())   # [N*k, B]
+    cid = spmd.gather_all(ids.long()[at].transpose(0, 1).contiguous())
+    _, best = torch.topk(val.transpose(0, 1), top_k, dim=-1, sorted=True)
+    return scores, torch.gather(cid.transpose(0, 1), 1, best).to(ids.dtype)

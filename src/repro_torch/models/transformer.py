@@ -16,10 +16,19 @@ paths (port of ``repro/models/transformer.py``).
     ``to_float8_e4m3fn``, the reference's cast, and read back in the
     activation dtype before the dots.
 
-``seq_parallel_residual`` and ``attn_seq_pin`` only place tensors on a
-device mesh in the reference (sequence-parallel residuals, pinned score
-layouts); on one device they change nothing, and here they are kept in
-the config and ignored.
+``seq_parallel_residual`` and ``attn_seq_pin`` place tensors on a device
+mesh in the reference (sequence-parallel residuals, pinned score layouts)
+through ``constrain``, as here; on one device, and on the plain blocks the
+sharded step hands a rank, they change nothing.
+
+Under the sharded step (``train/sharded.py``, ``distributed/spmd.py``) a
+rank holds a block of the rows and, in training and prefill, one chunk of
+the sequence over the model axis: its positions start at the chunk's
+offset, its keys and values are all-gathered over the axis for the
+attention (the cache keeps its own chunk), a decode step attends over its
+chunk of the cache with the softmax reduced over the axis, and the
+parameters arrive as shards that ``spmd.full`` gathers where they are used
+(one layer at a time, again in the layer's recomputation).
 
 Parameters are a flat dict named as the reference's tree: ``embed``
 [V, d], ``layers.ln1.scale`` [L, d], ``layers.attn.wq.w`` [L, d, H * Dh]
@@ -35,8 +44,11 @@ import torch
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init, moe_specs
+from repro_torch.models.moe import (MoEConfig, TokenLayout, moe_ffn,
+                                    moe_init, moe_specs)
 from repro_torch.models.params import flatten, prefixed, unflatten
 
 # float8_e4m3fn's largest finite value is 448; the reference's cast (round
@@ -180,22 +192,32 @@ def layer_params(params: dict, n_layers: int) -> list[dict]:
 # ---------------------------------------------------------------- forward
 
 
+def _full_layer(lp: dict) -> dict:
+    """One layer's parameters whole from their shards (``spmd.full``)."""
+    return unflatten({k: spmd.full(f"layers.{k}", v, stacked=True)
+                      for k, v in flatten(lp).items()})
+
+
 def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig):
     # F.embedding: its backward sums a repeated token's rows in a fixed
     # order on the card (no float atomics)
-    return F.embedding(tokens.long(), params["embed"]).to(
-        cfg.activation_dtype)
+    return F.embedding(tokens.long(), spmd.full("embed", params["embed"])
+                       ).to(cfg.activation_dtype)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig):
-    x = L.rmsnorm({"scale": params["ln_f.scale"]}, x)
-    return x @ params["head"].to(cfg.activation_dtype)
+    x = L.rmsnorm({"scale": spmd.full("ln_f.scale", params["ln_f.scale"])},
+                  x)
+    logits = x @ spmd.full("head", params["head"]).to(cfg.activation_dtype)
+    return constrain(logits, ("batch",) + (None,) * (logits.dim() - 2)
+                     + ("vocab",))
 
 
-def _ffn(lp: dict, x2: torch.Tensor, cfg: LMConfig):
+def _ffn(lp: dict, x2: torch.Tensor, cfg: LMConfig, seq_split: bool = True):
     if cfg.moe is not None:
         b, s, d = x2.shape
-        y, aux = moe_ffn(lp["moe"], x2.reshape(b * s, d), cfg.moe)
+        y, aux = moe_ffn(lp["moe"], x2.reshape(b * s, d), cfg.moe,
+                         TokenLayout(b, seq_split))
         return y.reshape(b, s, d), aux
     return L.swiglu(lp["mlp"], x2), torch.zeros((), dtype=torch.float32,
                                                 device=x2.device)
@@ -213,51 +235,76 @@ def _qkv(lp: dict, x1: torch.Tensor, cfg: LMConfig, positions):
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _self_attn(lp: dict, x1: torch.Tensor, cfg: LMConfig):
-    """Causal attention over the sequence: (output, (k, v))."""
+def _self_attn(lp: dict, x1: torch.Tensor, cfg: LMConfig, pos0: int = 0):
+    """Causal attention over the sequence from position ``pos0`` on (this
+    rank's chunk, which attends over every chunk up to its own): (output,
+    (k, v) of the chunk)."""
     b, s, _ = x1.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x1.device)[None]
+    positions = torch.arange(pos0, pos0 + s, dtype=torch.int32,
+                             device=x1.device)[None]
     q, k, v = _qkv(lp, x1, cfg, positions)
-    if s > L.ATTN_CHUNK_THRESHOLD:
-        o = L.gqa_attention_chunked(q, k, v, causal=True)
+    k_all, v_all = spmd.gather_model(k, 1), spmd.gather_model(v, 1)
+    if k_all.shape[1] > L.ATTN_CHUNK_THRESHOLD:
+        o = L.gqa_attention_chunked(q, k_all, v_all, causal=True,
+                                    q_offset=pos0)
     else:
-        o = L.gqa_attention(q, k, v, causal=True, seq_pin=cfg.attn_seq_pin)
+        o = L.gqa_attention(q, k_all, v_all, causal=True, q_offset=pos0,
+                            seq_pin=cfg.attn_seq_pin)
     return L.apply_dense(lp["attn"]["wo"], o.reshape(b, s, -1)), (k, v)
 
 
-def _block(x: torch.Tensor, lp: dict, cfg: LMConfig):
-    a, _ = _self_attn(lp, L.rmsnorm(lp["ln1"], x), cfg)
+def _block(x: torch.Tensor, lp: dict, cfg: LMConfig, pos0: int = 0):
+    lp = _full_layer(lp)
+    if cfg.seq_parallel_residual:
+        x = constrain(x, ("batch", "kv_seq", None))
+    a, _ = _self_attn(lp, L.rmsnorm(lp["ln1"], x), cfg, pos0)
     x = x + a
     f, aux = _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
-    return x + f, aux
+    x = x + f
+    if cfg.seq_parallel_residual:
+        x = constrain(x, ("batch", "kv_seq", None))
+    return x, aux
 
 
-def lm_forward(params: dict, tokens: torch.Tensor, cfg: LMConfig):
-    """tokens int[B, S] -> (logits [B, S, V] in the activation dtype, the
-    layers' summed aux loss). With ``cfg.remat`` and gradients on, each
-    layer is recomputed in the backward."""
-    x = _embed(params, tokens, cfg)
+def lm_forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+               pos0: int = 0):
+    """tokens int[B, S] from position ``pos0`` -> (logits [B, S, V] in the
+    activation dtype, the layers' summed aux loss). With ``cfg.remat`` and
+    gradients on, each layer is recomputed in the backward."""
+    x = constrain(_embed(params, tokens, cfg), ("batch", None, None))
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for lp in layer_params(params, cfg.n_layers):
         if remat:
-            x, aux = checkpoint(_block, x, lp, cfg, use_reentrant=False)
+            x, aux = checkpoint(_block, x, lp, cfg, pos0,
+                                use_reentrant=False)
         else:
-            x, aux = _block(x, lp, cfg)
+            x, aux = _block(x, lp, cfg, pos0)
         auxs.append(aux)
     return _logits(params, x, cfg), torch.stack(auxs).sum()
 
 
 def lm_loss(params: dict, batch: dict, cfg: LMConfig):
     """Next-token cross-entropy (float32) plus the aux loss; metrics
-    ``xent`` and ``aux``."""
-    logits, aux = lm_forward(params, batch["tokens"], cfg)
-    loss = L.softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
-                          batch.get("mask", None))
+    ``xent`` and ``aux``. Under a split mesh, this rank's chunk of the
+    sequence (``spmd.seq_slice``) predicts the labels one position on, and
+    the loss is its share."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    off, c = spmd.seq_slice(tokens.shape[1])
+    logits, aux = lm_forward(params, tokens[:, off:off + c], cfg, pos0=off)
+    target = labels[:, off + 1:off + c + 1]
+    mask = batch.get("mask", None)
+    if mask is not None:
+        mask = mask[:, off + 1:off + c + 1]
+    loss = L.softmax_xent(logits[:, :target.shape[1]], target, mask)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving
+
+
+# a cache layer's logical axes, [B, S, KV, Dh]
+KV_SPEC = ("batch", "kv_seq", "kv_heads", None)
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
@@ -273,18 +320,29 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     The cache is ([L, B, max_len, KV, Dh],) * 2 in ``cfg.cache_dtype``,
     the prompt's keys and values in its first S slots and zeros after
     (``max_len`` defaults to S: the reference's cache; a larger one is the
-    reference's cache padded with zeros for the decode steps)."""
+    reference's cache padded with zeros for the decode steps). Under a
+    split mesh the rank's cache is its chunk of the sequence (no
+    ``max_len``)."""
     b, s = tokens.shape
-    cache = init_kv_cache(cfg, b, max_len or s, tokens.device)
-    x = _embed(params, tokens, cfg)
+    off, c = spmd.seq_slice(s)
+    if c != s and max_len is not None:
+        raise ValueError("a padded cache on a split mesh")
+    cache = init_kv_cache(cfg, b, max_len or c, tokens.device)
+    x = _embed(params, tokens[:, off:off + c], cfg)
     for i, lp in enumerate(layer_params(params, cfg.n_layers)):
-        a, (k, v) = _self_attn(lp, L.rmsnorm(lp["ln1"], x), cfg)
+        lp = _full_layer(lp)
+        a, (k, v) = _self_attn(lp, L.rmsnorm(lp["ln1"], x), cfg, off)
         x = x + a
         f, _ = _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
         x = x + f
-        cache[0][i, :, :s] = _to_cache(k, cfg.cache_dtype)
-        cache[1][i, :, :s] = _to_cache(v, cfg.cache_dtype)
-    return _logits(params, x[:, -1:], cfg)[:, 0], cache
+        # the cache layers are the step's outputs: pinned model-axis sharded
+        cache[0][i, :, :c] = constrain(_to_cache(k, cfg.cache_dtype),
+                                       KV_SPEC)
+        cache[1][i, :, :c] = constrain(_to_cache(v, cfg.cache_dtype),
+                                       KV_SPEC)
+    # the prompt's last token is the last chunk's
+    last = spmd.gather_model(_logits(params, x[:, -1:], cfg), 1)[:, -1]
+    return last, cache
 
 
 def lm_decode_step(params: dict, token: torch.Tensor, cache, cache_len,
@@ -295,25 +353,38 @@ def lm_decode_step(params: dict, token: torch.Tensor, cache, cache_len,
     int scalar tensor): the number of filled slots. The token's key and
     value go into slot ``cache_len`` of ``cache``, in place; attention
     reads the slots up to and including it. Returns (logits [B, V], the
-    cache)."""
+    cache). Under a split mesh with a model axis, ``cache`` is the rank's
+    chunk of the slots (``gqa_attention_split_kv``)."""
     cache_len = int(cache_len)
     b = token.shape[0]
     max_len = cache[0].shape[2]
     adt = cfg.activation_dtype
+    sp = spmd.split()
+    split_kv = sp is not None and sp.model > 1
+    off = sp.model_index * max_len if split_kv else 0
     x = _embed(params, token, cfg)
     positions = torch.full((1, 1), cache_len, dtype=torch.int32,
                            device=token.device)
-    slot_mask = (torch.arange(max_len, device=token.device)
+    slot_mask = (torch.arange(off, off + max_len, device=token.device)
                  <= cache_len)[None].expand(b, max_len)
+    at = cache_len - off
     for lp, k_l, v_l in zip(layer_params(params, cfg.n_layers),
                             torch.unbind(cache[0], 0),
                             torch.unbind(cache[1], 0)):
+        lp = _full_layer(lp)
         q, kn, vn = _qkv(lp, L.rmsnorm(lp["ln1"], x), cfg, positions)
-        k_l[:, cache_len:cache_len + 1] = _to_cache(kn, k_l.dtype)
-        v_l[:, cache_len:cache_len + 1] = _to_cache(vn, v_l.dtype)
-        o = L.gqa_attention(q, k_l.to(adt), v_l.to(adt), causal=False,
-                            kv_len_mask=slot_mask, seq_pin=cfg.attn_seq_pin)
+        if not split_kv or 0 <= at < max_len:
+            k_l[:, at:at + 1] = _to_cache(kn, k_l.dtype)
+            v_l[:, at:at + 1] = _to_cache(vn, v_l.dtype)
+        k_l, v_l = constrain(k_l, KV_SPEC), constrain(v_l, KV_SPEC)
+        if split_kv:
+            o = L.gqa_attention_split_kv(q, k_l.to(adt), v_l.to(adt),
+                                         kv_len_mask=slot_mask)
+        else:
+            o = L.gqa_attention(q, k_l.to(adt), v_l.to(adt), causal=False,
+                                kv_len_mask=slot_mask,
+                                seq_pin=cfg.attn_seq_pin)
         x = x + L.apply_dense(lp["attn"]["wo"], o.reshape(b, 1, -1))
-        f, _ = _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
+        f, _ = _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, seq_split=False)
         x = x + f
     return _logits(params, x, cfg)[:, 0], cache

@@ -93,19 +93,28 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
-    """(grads scaled to at most ``max_norm`` in global norm, the norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None):
+    """(grads scaled to at most ``max_norm`` in global norm, the norm);
+    ``norm`` passes the norm when the caller has it."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
+
+
+def _mean(x: torch.Tensor, dim: int, param_dim: int, name: str):
+    return x.mean(dim=dim)
 
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: dict,
-                 cfg: OptConfig):
+                 cfg: OptConfig, mean=_mean):
     """Returns (new_params, new_state); the inputs are left as they are.
-    Handles both the full and the factored second moment."""
+    Handles both the full and the factored second moment. ``mean(x, dim,
+    param_dim, name)`` takes the factored statistics' means over ``dim`` of
+    ``x``, which is parameter ``name``'s dimension ``param_dim`` (the
+    sharded step reduces it over the ranks that split it)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(cfg.b1, t)
@@ -128,13 +137,14 @@ def adamw_update(params: dict[str, torch.Tensor],
         else:
             g2 = g32 * g32
             vr = st["vr"].to(torch.float32) * cfg.b2 \
-                + g2.mean(dim=-1) * (1 - cfg.b2)
+                + mean(g2, -1, -1, name) * (1 - cfg.b2)
             vc = st["vc"].to(torch.float32) * cfg.b2 \
-                + g2.mean(dim=-2) * (1 - cfg.b2)
+                + mean(g2, -2, -2, name) * (1 - cfg.b2)
             new_st["vr"], new_st["vc"] = vr.to(cfg.mdt), vc.to(cfg.mdt)
             vr_hat, vc_hat = vr / bc2, vc / bc2
             v_est = (vr_hat[..., None] * vc_hat[..., None, :]
-                     / torch.clamp(vr_hat.mean(dim=-1)[..., None, None],
+                     / torch.clamp(mean(vr_hat, -1, -2, name)[..., None,
+                                                               None],
                                    min=1e-30))
             denom = torch.sqrt(v_est) + cfg.eps
         upd = m_hat / denom + cfg.weight_decay * p.to(torch.float32)

@@ -8,6 +8,11 @@ falls back to the previous valid step. A checkpoint stores host copies of
 the tensors under flat ``/``-joined key paths of the state's nested dicts;
 a dtype numpy lacks (bfloat16, float8) is stored as its bits in an
 unsigned integer of the same width.
+
+Checkpoints hold whole tensors and do not depend on the mesh: the
+sharded trainer gathers its shards before it saves and puts the restored
+tensors back on its own placements (``train/trainer.py``). A meta tensor
+in the restore template stands for a host tensor of its shape and dtype.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ def _from_host(arr: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
     t = torch.from_numpy(arr)
     if ref.dtype in _BITS and t.dtype == _BITS[ref.dtype]:
         t = t.view(ref.dtype)
-    return t.to(ref.device, ref.dtype)
+    return t.to(ref.dtype) if ref.is_meta else t.to(ref.device, ref.dtype)
 
 
 def _sha256(path: Path) -> str:
@@ -122,7 +127,7 @@ class CheckpointManager:
     def restore(self, state_like, step: int | None = None):
         """Restore into the structure of ``state_like``: the same key paths
         and shapes; each tensor takes its ``state_like`` counterpart's dtype
-        and device. Returns (state, step), or (None, None) when no valid
+        and device (the host for a meta tensor). Returns (state, step), or (None, None) when no valid
         checkpoint exists."""
         cands = self._candidates()
         if step is not None:

@@ -9,8 +9,12 @@ all-reduce MIN of 4n bytes, ``_bottomup``'s all-gather of the n/8-byte
 bitmap, and the final all-gathers of parent and depth; its shapes are the
 reference's analytic ones. A reduced config's ``dryrun_cell`` writes the
 reference's record keys, its analytic FLOPs and its per-device argument
-bytes (the sum of the reference's shard shapes). The two CLIs write their
-records under the reference's file names. The module starts all its
+bytes (the sum of the reference's shard shapes), and traces the sharded
+step: ``status: "ok"`` with every memory, collective and roofline term.
+The reduced phi4-mini's sharded train step on a fake 2x2 group counts the
+all-gather and reduce-scatter wire bytes reckoned by hand from its
+``LeafSharding``s and its attention's key/value chunks. The two CLIs write
+their records under the reference's file names. The module starts all its
 children together, in threads, on first use.
 """
 import json
@@ -30,7 +34,6 @@ from repro.configs.reduced import reduce_arch as jreduce
 from repro.distributed.sharding import resolve_spec as jresolve
 from repro.launch.flops import analytic_flops as janalytic
 from repro_torch.benchmarks import roofline as roofline_bench
-from repro_torch.launch.dryrun import SHARDED_STEP_SKIP
 from test_torch_shapes import flat_leaves
 
 # the reference's record keys (src/repro/launch/bfs_dryrun.py,
@@ -46,6 +49,7 @@ CELL_KEYS = {"arch", "shape", "mesh", "kind", "status", "n_devices",
              "roofline"}
 ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "dominant",
                  "step_time_bound_s", "roofline_fraction"}
+COLLECTIVE_KEYS = {"wire_bytes_per_device", "num_collectives", "by_op"}
 
 
 BFS_CELL = """
@@ -70,6 +74,17 @@ REDUCED_CELLS = """
                      for s in arch.shapes]
     print(json.dumps(recs))
 """
+LM_2X2 = """
+    import json
+    from repro_torch.configs.reduced import reduce_arch
+    from repro_torch.launch.dryrun import sharded_terms
+    from repro_torch.launch.mesh import fake_process_group, make_mesh
+    arch = reduce_arch("phi4-mini-3.8b")
+    with fake_process_group(4):
+        t = sharded_terms(arch, arch.shape("train_4k"),
+                          make_mesh((2, 2), ("data", "model")))
+    print(json.dumps(t))
+"""
 REDUCED_ARCHS = ("phi4-mini-3.8b", "qwen3-moe-30b-a3b", "dien")
 CLI_RUNS = {
     "bfs": ("bfs_dryrun", ["--scale", "12", "--edgefactor", "4"]),
@@ -92,9 +107,11 @@ def runs(tmp_path_factory):
     """Every child of the module, started together: ({name: its stdout
     or completed process}, the CLIs' output directory)."""
     out = tmp_path_factory.mktemp("dryrun")
-    with ThreadPoolExecutor(len(REDUCED_ARCHS) + len(CLI_RUNS) + 1) as ex:
+    with ThreadPoolExecutor(len(REDUCED_ARCHS) + len(CLI_RUNS) + 2) as ex:
         futs = {"bfs_cell": ex.submit(run_in_subprocess,
-                                      textwrap.dedent(BFS_CELL))}
+                                      textwrap.dedent(BFS_CELL)),
+                "lm_2x2": ex.submit(run_in_subprocess,
+                                    textwrap.dedent(LM_2X2))}
         for a in REDUCED_ARCHS:
             futs[a] = ex.submit(run_in_subprocess, textwrap.dedent(
                 REDUCED_CELLS.format(arch_id=a)))
@@ -180,9 +197,13 @@ def test_dryrun_cell_reduced(runs, arch_id):
         assert CELL_KEYS <= set(rec), rec
         assert MEMORY_KEYS <= set(rec["memory"])
         assert ROOFLINE_KEYS <= set(rec["roofline"])
-        assert rec["status"] == "skipped"
-        assert rec["skip_reason"] == SHARDED_STEP_SKIP
-        assert "A9 (d)" in rec["skip_reason"]
+        assert rec["status"] == "ok", rec.get("skip_reason")
+        assert all(v is not None for v in rec["memory"].values()), rec
+        assert all(v is not None for v in rec["roofline"].values()), rec
+        assert COLLECTIVE_KEYS <= set(rec["collective"])
+        assert rec["collective"]["num_collectives"] > 0
+        assert rec["hbm_bytes_per_device"] > 0
+        assert rec["memory"]["temp_bytes"] > 0
         shape = jarch.shape(rec["shape"])
         an = janalytic(jarch, shape)
         assert rec["model_flops_global"] == an["model_flops"]
@@ -193,7 +214,8 @@ def test_dryrun_cell_reduced(runs, arch_id):
         assert rec["memory"]["argument_bytes"] \
             == ref_arg_bytes(jarch, rec["shape"], *mesh)
         assert rec["roofline"]["compute_s"] == pytest.approx(
-            an["executed_flops"] / rec["n_devices"] / 989e12, rel=1e-12)
+            max(an["executed_flops"] / rec["n_devices"],
+                rec["flops_per_device"]) / 989e12, rel=1e-12)
         assert rec["counted_flops_global"] > 0
         if shape.kind == "train":
             assert 0 < rec["memory"]["alias_bytes"] \
@@ -213,8 +235,9 @@ def test_dryrun_cli(runs):
         for shape in ("full_graph_sm", "minibatch_lg", "ogb_products",
                       "molecule"):
             rec = recs[f"mace__{shape}__{mesh}"]
-            assert rec["skip_reason"] == SHARDED_STEP_SKIP
+            assert rec["status"] == "ok" and rec["sharded"]["mode"] == "split"
             assert rec["counted_flops_global"] > 0
+            assert rec["collective"]["by_op"]["reduce-scatter"]["count"] > 0
     long = recs["llama3-405b__long_500k__pod16x16"]
     assert long["status"] == "skipped"
     assert long["skip_reason"] == jbase.get_arch("llama3-405b").shape(
@@ -222,6 +245,7 @@ def test_dryrun_cli(runs):
     gcn = recs["gcn-cora__full_graph_sm__pod2x16x16"]
     assert gcn["counted_flops_global"] is None
     assert "nonzero" in gcn["counted_skip_reason"]
+    assert gcn["status"] == "skipped" and "nonzero" in gcn["skip_reason"]
     assert gcn["memory"]["alias_bytes"] == 0 and not gcn["donate"]
 
 
@@ -232,7 +256,7 @@ def test_roofline_tables(runs):
     rows = roofline_bench.markdown_table("pod16x16", runs[1] / "mace")
     rows = rows.splitlines()[2:]
     assert len(rows) == 4 and all(r.startswith("| mace |") for r in rows)
-    assert all("| skipped |" in r for r in rows)
+    assert not any("skipped" in r or "—" in r for r in rows)
     long = roofline_bench.markdown_table("pod16x16", runs[1] / "long")
     assert long.splitlines()[2].startswith("| llama3-405b | long_500k |")
     bfs = roofline_bench.bfs_table("pod2x16x16", runs[1] / "bfs")
@@ -241,3 +265,42 @@ def test_roofline_tables(runs):
     assert roofline_bench.device_gb({"memory": {
         "argument_bytes": 3e9, "temp_bytes": 2e9, "output_bytes": None,
         "alias_bytes": 1e9}}) == 4.0
+
+
+def test_sharded_lm_collectives_by_hand(runs):
+    """The reduced phi4-mini's sharded train step on a fake 2x2 group (its
+    two microbatches of 4 rows split in 2 rows over "data" and 32 tokens
+    over "model"): all-gather and reduce-scatter wire bytes are the ring
+    formula over 2 ranks on what the step gathers and scatters. A
+    parameter is all-gathered over its sharded axes, the model axis first,
+    where it is used: once a microbatch for the embedding, the final norm
+    and the head, twice for a layer's (its forward and its recomputation);
+    the backward reduce-scatters each gather once. A layer's keys and
+    values are all-gathered over "model" in its forward and its
+    recomputation and their gradients reduce-scattered once."""
+    from repro_torch.configs.base import step_arg_specs
+    from repro_torch.configs.reduced import reduce_arch
+    from repro_torch.distributed.sharding import tree_shardings
+    got = json.loads(runs[0]["lm_2x2"].strip().splitlines()[-1])
+    arch = reduce_arch("phi4-mini-3.8b")
+    cfg, k = arch.model_cfg, arch.microbatches
+    args, specs = step_arg_specs(arch, arch.shape("train_4k"))
+    sh = tree_shardings(args, specs, {"data": 2, "model": 2})
+    ag = rs = 0.0
+    for name, t in args[0].items():
+        pl = sh[f"0.{name}"].placements
+        shape = list(sh[f"0.{name}"].local_shape)
+        uses = 2 if name.startswith("layers.") else 1
+        for p in reversed(pl):            # the model axis first
+            if p.is_shard():
+                before = math.prod(shape) * t.element_size()
+                shape[p.dim] *= 2
+                ag += k * uses * ring("all-gather", 2 * before, 2)
+                rs += k * before          # R (k - 1), R the shard
+    rows, chunk = 8 // k // 2, 64 // 2
+    kv = rows * chunk * cfg.n_kv_heads * cfg.d_head * 4
+    ag += k * cfg.n_layers * 2 * 2 * ring("all-gather", 2 * kv, 2)
+    rs += k * cfg.n_layers * 2 * kv
+    assert got["mode"] == "split"
+    assert got["by_op"]["all-gather"]["wire_bytes"] == pytest.approx(ag)
+    assert got["by_op"]["reduce-scatter"]["wire_bytes"] == pytest.approx(rs)

@@ -101,7 +101,8 @@ def test_port_files_are_found():
             "examples/gnn_neighbor_sampling.py", "launch/mesh.py",
             "launch/flops.py", "launch/roofline.py", "launch/dryrun.py",
             "launch/bfs_dryrun.py", "distributed/sharding.py",
-            "benchmarks/roofline.py"} <= names
+            "benchmarks/roofline.py", "distributed/spmd.py",
+            "distributed/aggregate.py", "train/sharded.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

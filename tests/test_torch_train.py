@@ -23,6 +23,7 @@ from repro_torch.configs.reduced import reduce_arch
 from repro_torch.data.pipeline import gnn_batch, make_batch
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import fake_process_group, make_mesh
 from repro_torch.models.gnn.common import graph_batch_from_numpy
 from repro_torch.models.gnn.gcn import (gcn_params_from_numpy,
                                         opt_state_from_numpy)
@@ -169,7 +170,9 @@ def test_launcher_runs_reduced_on_cpu(tmp_path, capsys):
     assert np.isfinite(log[-1]["loss"]) and log[-1]["grad_norm"] > 0
     assert "step     2" in capsys.readouterr().out
     assert CheckpointManager(tmp_path).latest_step() == 2
-    with pytest.raises(NotImplementedError, match="A9"):
+    # --model-parallel 2 trains under a 2-rank group (test_torch_sharded.py
+    # runs it so); one rank without a group cannot split
+    with pytest.raises(ValueError, match="torchrun"):
         launch_train.main(["--arch", "gcn-cora", "--reduced",
                            "--model-parallel", "2", "--device", "cpu"])
 
@@ -222,12 +225,24 @@ def test_registry_and_unported_paths_raise():
     st = init_opt_state({"w": torch.zeros(2, 3)}, OptConfig(factored=True))
     assert {k: tuple(v.shape) for k, v in st["per_param"]["w"].items()} \
         == {"m": (2, 3), "vr": (2,), "vc": (3,)}
+    # the paths that raised until the sharded step was ported (ROADMAP A9
+    # (d)): remesh onto one device carries the state over exactly, and a
+    # mesh of two devices (a fake group here; gloo ranks in
+    # test_torch_sharded.py) holds each rank's shards
     tr = Trainer(reduce_arch("gcn-cora"), "full_graph_sm", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tr.remesh(None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(arch, "full_graph_sm", device="cpu",
-                mesh=SimpleNamespace(size=2))
+    tr.run_step()
+    before = {k: v.clone() for k, v in tr.params.items()}
+    tr.remesh(None)
+    assert tr.step == 1 and not tr.sharded
+    assert all(torch.equal(tr.params[k], v) for k, v in before.items())
+    assert tr.run_step()["loss"].isfinite()
+    with fake_process_group(2):
+        tr = Trainer(arch, "full_graph_sm", device="cpu",
+                     mesh=make_mesh((2, 1), ("data", "model")))
+        assert tr.sharded and tr._sharded.local_bytes == sum(
+            t.numel() * t.element_size() for t in tr.params.values()) + sum(
+            t.numel() * t.element_size() for st in
+            tr.opt_state["per_param"].values() for t in st.values()) + 4
 
 
 # ------------------------------------------------------------------- LMs
