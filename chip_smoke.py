@@ -51,14 +51,26 @@ phase prints one JSON line:
            their plain versions taken in float64, on a seeded
            ogb_products-shaped batch's graph and its transpose (d = 16,
            timed, and 47), a row subset of it at d = 100, and the R-MAT
-           graph at d = 16 (hub rows: long residue tails);
+           graph at d = 16 (hub rows: long residue tails); then the batch
+           with a quarter of its edges masked (dead slots past row_ptr[n]
+           in the fixed-size CSR) at d = 100: each CSR's live part equal to
+           the nonzero CSR's (nonzero_csr), both kernels bit-equal to their
+           plain versions (the residue in slot order) and to the kernels
+           over the nonzero CSR;
   gcn_layers      where one gcn-cora training step at ogb_products spends
            its time (data, CSR + ELL build, forward, backward, optimizer,
            one step under torch.profiler, as for the zoo below), the
-           kernels' launches and ms in a step, its host syncs;
+           kernels' launches and ms in a step, its host syncs beside the
+           nonzero adjacency's (2 more an adjacency build), the
+           adjacency build and the step over both in turns; on a masked
+           batch the step's loss and gradients bit-equal over both
+           adjacencies and the kernels, as in gnn_kernel, at the step's
+           four shapes;
   gcn_train       the Trainer on gcn-cora at ogb_products (1 warm-up and 5
-           timed steps) with the launch counts of that run alone (4 of each
-           kernel a step), then one step on the kernels against the plain
+           timed steps) with the launch counts of that run alone (4 of
+           ell_spmm a step, and spmm_residue's kernels: a row and a segment
+           pass per column block and a merge, 3 a call at d <= 128, 12 a
+           step), then one step on the kernels against the plain
            aggregation on the same card, and kill-and-resume at
            full_graph_sm (exact);
   gnn_zoo  the rest of the GNN zoo: ell_spmm and spmm_residue on GIN's
@@ -69,7 +81,9 @@ phase prints one JSON line:
            tails of at most 64 slots) and timed beside its bound; the
            Trainer on gin-tu at ogb_products (1 warm-up and 5 timed steps)
            and full_graph_sm with the launches of each run (5 forward and
-           4 backward of each kernel a step), one ogb_products step on the
+           4 backward calls of each kernel a step: 9 launches of ell_spmm,
+           27 and 49 of spmm_residue, whose call at d_feat = 1433 is 12
+           column passes), one ogb_products step on the
            kernels against the plain aggregation; the Trainer on egnn and
            mace (bfloat16) at full width, 3 steps each at molecule and
            minibatch_lg, every grad_norm finite except egnn's at
@@ -266,12 +280,14 @@ phase prints one JSON line:
            process group of 256 or 512 ranks), at once, each in its own
            process: repro_torch.launch.bfs_dryrun at scale 22 and 26 and
            repro_torch.launch.dryrun on an LM cell (phi4-mini-3.8b
-           train_4k) and a GNN cell (mace ogb_products) on both meshes,
-           which shows this torch has fake_pg; each model cell traces the
-           sharded step and must be ok with every memory and roofline
-           term; then repro_torch.benchmarks.run --only roofline over
-           their records (in --out DIR or a temporary directory), which
-           must rank the two 16x16 model cells; the records by status
+           train_4k) and two GNN cells (mace and gin-tu at ogb_products;
+           GIN's adjacency a fixed-size CSR, its kernels custom ops on
+           meta tensors) on both meshes, which shows this torch has
+           fake_pg; each model cell traces the sharded step and must be ok
+           with every memory and roofline term; then
+           repro_torch.benchmarks.run --only roofline over their records
+           (in --out DIR or a temporary directory), which must rank the
+           three 16x16 model cells; the records by status
            (none may be an error), each BFS cell's per-layer wire MB by
            direction and its dominant term, each model cell's counted over
            analytic executed FLOPs, its argument, peak, output, temporary,
@@ -305,6 +321,7 @@ import sys
 import tempfile
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -406,10 +423,11 @@ from repro_torch.kernels.semiring_relax.kernel import (  # noqa: E402
     semiring_relax_cuda)
 from repro_torch.kernels.semiring_relax.ref import semiring_relax_ref  # noqa: E402
 from repro_torch.kernels.spmm_residue.kernel import (  # noqa: E402
-    residue_scratch, spmm_residue_cuda)
+    residue_launches, residue_scratch, spmm_residue_cuda)
 from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref  # noqa: E402
 from repro_torch.kernels.topdown_scan.kernel import topdown_scan_cuda  # noqa: E402
 from repro_torch.kernels.topdown_scan.ref import topdown_best_ref  # noqa: E402
+from repro_torch.models.gnn import common as gnn_common  # noqa: E402
 from repro_torch.models.gnn.common import (ELL_K_MAX,  # noqa: E402
                                            build_adjacency, edge_adjacency)
 from repro_torch.distributed.aggregate import (local_aggregate,  # noqa: E402
@@ -486,6 +504,9 @@ BATCHED_KERNELS = ("msbfs_probe", "segment_or")
 SSSP_KERNELS = ("semiring_relax", "relax_fallback")
 GNN_KERNELS = ("ell_spmm", "spmm_residue")
 GCN_STEPS = 6  # the Trainer's run: 1 warm-up step and 5 timed
+# the gnn_kernel and gcn_layers phases' masked batches: this share of the
+# edges masked (seeded), so that the fixed-size CSR holds dead slots
+MASKED_SHARE = 0.25
 # the gnn_zoo phase: spmm_residue.cu's row pass sums tails of at most this
 # many slots in slot order (LONG_TAIL); egnn and mace steps at each shape
 RESIDUE_LONG_TAIL = 64
@@ -555,11 +576,13 @@ HILLCLIMB_REPEATS = 3
 # child's time limit
 U64_WIDTHS = (1, 2, 3)
 U64_CHILD_TIMEOUT = 900
-# the dryrun phase: the BFS scales and the model cells it runs, an LM's and
-# a GNN's, on both meshes (every cell runs on the CPU: python -m
+# the dryrun phase: the BFS scales and the model cells it runs, an LM's,
+# MACE's and GIN's (its fixed-size adjacency and meta kernels), on both
+# meshes (every cell runs on the CPU: python -m
 # repro_torch.launch.dryrun --all --both-meshes)
 DRYRUN_SCALES = (22, 26)
-DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"), ("mace", "ogb_products"))
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"), ("mace", "ogb_products"),
+                ("gin-tu", "ogb_products"))
 # the sharded phase: GIN's aggregation at ogb_products on each block of a
 # 4-way contiguous edge partition (owner_gather_scatter's local body) at the
 # layer-0 and the hidden width; the sharded step's steps (gin-tu at
@@ -602,10 +625,12 @@ def sharded_blocks(dev, reps, flush) -> dict:
     of a 4-way contiguous edge partition of gin-tu's ogb_products batch, at
     d = 100 (its features) and 64 (a seeded hidden width). Each block's
     kernels must be bit-equal to their plain versions (the residue summed
-    in slot order) and make one launch each; the blocks' partial sums
+    in slot order); the blocks' partial sums
     together must lie within float32's summation bound of the whole
     aggregation in float64 (slot order differs between blocks: not bit for
-    bit). Returns the kernels line's record, by kernel."""
+    bit). ell_spmm makes one launch a block, spmm_residue the kernels of
+    its column passes and merge (``residue_launches``). Returns the kernels
+    line's record, by kernel."""
     arch = get_arch("gin-tu")
     gb = gnn_batch(arch, arch.shape("ogb_products"), 0, seed=SEED + 5,
                    device=dev)
@@ -633,7 +658,8 @@ def sharded_blocks(dev, reps, flush) -> dict:
             part = local_aggregate(x, snd, rcv, mask, masked, n, adj)
             torch.cuda.synchronize()
             launches = {k: common.LAUNCHES[k] for k in GNN_KERNELS}
-            check(all(v == 1 for v in launches.values()),
+            check(launches == {"ell_spmm": 1,
+                               "spmm_residue": residue_launches(d)},
                   f"block {b}'s local aggregation launched {launches}")
             slab = ell_spmm_cuda(neigh, valid, x)
             slab_plain = ell_spmm_ref(neigh, valid, x)
@@ -2012,16 +2038,114 @@ class GnnKernelCheck:
         emit(self.phase, **row)
 
 
+def nonzero_csr(rows, cols, mask, n) -> CSRGraph:
+    """The CSR that ``core/csr.py::from_edge_tensors`` gave before it kept
+    dead slots: the
+    masked edges dropped first with ``nonzero`` (a host read of the kept
+    count), then the same stable sort by row. The oracle of the fixed-size
+    CSR's live part, and the nonzero adjacency of ``gcn_layers``."""
+    keep = mask.nonzero().squeeze(1)
+    rows, cols = rows[keep], cols[keep]
+    src, order = torch.sort(rows.to(torch.int32), stable=True)
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=src.device)
+    return CSRGraph(row_ptr=torch.searchsorted(src, bounds, out_int32=True),
+                    col_idx=cols.to(torch.int32)[order], src_idx=src)
+
+
+def masked_batch(gb, seed):
+    """``gb`` with a seeded MASKED_SHARE of its edges masked."""
+    gen = torch.Generator(device=gb.edge_mask.device).manual_seed(seed)
+    drop = torch.rand(gb.n_edges, generator=gen,
+                      device=gb.edge_mask.device) < MASKED_SHARE
+    return gb._replace(edge_mask=gb.edge_mask & ~drop)
+
+
+def masked_kernels(phase, gb, widths, seed) -> dict:
+    """B5 and X3 over both CSRs of ``masked_batch(gb, seed)``, whose masked
+    edges are dead slots past ``row_ptr[n]``: each CSR's live part equal
+    to ``nonzero_csr``'s, and at each width in ``widths`` (a seeded x) the
+    slab sum bit-equal to its float32 plain version, the residue to its
+    slot-order plain version, and the two together to the kernels over
+    ``nonzero_csr``'s CSR (the bits before dead slots). Emits and returns
+    the record."""
+    gbm = masked_batch(gb, seed)
+    adj = build_adjacency(gbm)
+    n, e = gbm.n_nodes, gbm.n_edges
+    live = int(gbm.edge_mask.sum())
+    gen = torch.Generator(device=gbm.feats.device).manual_seed(seed + 1)
+    cases = []
+    for name, g, ell, rows, cols in (
+            ("fwd", adj.fwd, adj.fwd_ell, gbm.receivers, gbm.senders),
+            ("bwd", adj.bwd, adj.bwd_ell, gbm.senders, gbm.receivers)):
+        old = nonzero_csr(rows, cols, gbm.edge_mask, n)
+        check(g.m == e and old.m == live == int(g.row_ptr[n])
+              and torch.equal(g.row_ptr, old.row_ptr)
+              and torch.equal(g.col_idx[:live], old.col_idx)
+              and torch.equal(g.src_idx[:live], old.src_idx)
+              and bool((g.src_idx[live:] == n).all()),
+              f"the masked {name} CSR's live part differs from "
+              f"nonzero_csr's")
+        tail = int((g.deg - ELL_K_MAX).clamp(min=0).max())
+        check(tail <= RESIDUE_LONG_TAIL, f"the masked {name} CSR has a tail "
+                                         f"of {tail} slots, past the row pass")
+        old_ell = ell_pad(old, ELL_K_MAX)
+        for d in widths:
+            x = torch.randn((n, d), generator=gen, device=gbm.feats.device)
+            y = ell_spmm_cuda(*ell, x)
+            check(torch.equal(y.view(torch.int32),
+                              ell_spmm_ref(*ell, x).view(torch.int32)),
+                  f"ell_spmm differs from its plain version on the masked "
+                  f"{name} CSR at d={d}")
+            want = residue_slot_order(g, x, y, ELL_K_MAX)
+            got = spmm_residue_cuda(g.row_ptr, g.src_idx, g.col_idx, x, y,
+                                    ELL_K_MAX)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"spmm_residue differs from its slot-order plain version "
+                  f"on the masked {name} CSR at d={d}")
+            before = spmm_aggregate(old, x, ELL_K_MAX, old_ell)
+            check(torch.equal(got.view(torch.int32),
+                              before.view(torch.int32)),
+                  f"the kernels over the masked {name} CSR differ from the "
+                  f"nonzero CSR at d={d}")
+            cases.append(f"{name} d={d}")
+            del x, y, want, got, before
+        del old, old_ell
+    rec = dict(part="masked", n=n, edges=e, live_edges=live,
+               dead_slots=e - live, masked_share=MASKED_SHARE, cases=cases,
+               bit_equal=True)
+    emit(phase, **rec)
+    return rec
+
+
+def gnn_launches(arch, shape_id) -> dict:
+    """Launches of each aggregation kernel in one train step of gcn-cora or
+    gin-tu at ``shape_id``: ell_spmm one a call, spmm_residue
+    ``residue_launches(d)`` a call at the call's width d. GCN aggregates
+    each layer's output (d_hidden, then n_classes), forward and backward;
+    GIN each layer's input, n_layers forward (layer 0 at d_feat) and
+    n_layers - 1 backward (layer 0's features need no gradient)."""
+    cfg = effective_cfg(arch, arch.shape(shape_id))
+    if type(cfg).__name__ == "GCNConfig":
+        out = [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+        widths = 2 * out
+    else:
+        widths = [cfg.d_feat] + [cfg.d_hidden] * (2 * cfg.n_layers - 2)
+    return {"ell_spmm": len(widths),
+            "spmm_residue": sum(residue_launches(d) for d in widths)}
+
+
 def gnn_kernel(chk, g_rmat, dev, reps, flush):
     """Both kernels on a seeded ogb_products-shaped batch's aggregation
     graph and its transpose (the GCN step's four shapes: forward and
     transposed graph at d = 16, the kernels line's timed input, and 47), a
     row subset of the forward graph at d = 100 against all its source rows,
     and the scale-20 R-MAT graph at d = 16, whose hubs give spmm_residue
-    long tails."""
+    long tails; then the batch with a quarter of its edges masked
+    (``masked_kernels`` at d = 100: dead slots in both CSRs)."""
     arch = get_arch("gcn-cora")
     shape = arch.shape("ogb_products")
     gb = gnn_batch(arch, shape, 0, seed=SEED + 2, device=dev)
+    masked_kernels("gnn_kernel", gb, (100,), SEED + 7)
     adj = build_adjacency(gb)
     n = gb.n_nodes
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -2052,7 +2176,12 @@ def gnn_kernel(chk, g_rmat, dev, reps, flush):
 def gcn_layers(dev, reps, flush):
     """Where one gcn-cora training step at ogb_products spends its time:
     step_breakdown's record, then the kernels' launches and device ms in a
-    step and the step's host syncs."""
+    step and the step's host syncs, beside the syncs of the same step over
+    the nonzero adjacency (``nonzero_csr``: one sync a CSR, two an
+    ``edge_adjacency`` call) and the adjacency build's and the step's wall
+    ms over both, 3 times in turns; on a masked batch, the step's loss and
+    gradients over both adjacencies (the same bits) and ``masked_kernels``
+    at the step's four shapes."""
     arch = get_arch("gcn-cora")
     shape = arch.shape("ogb_products")
     cfg = effective_cfg(arch, shape)
@@ -2065,7 +2194,50 @@ def gcn_layers(dev, reps, flush):
     step(params, opt_state, gb)
     torch.cuda.synchronize()
     out["launches_per_step"] = {k: common.LAUNCHES[k] for k in GNN_KERNELS}
-    out["syncs_per_step"] = syncs_of(lambda: step(params, opt_state, gb))
+    builds = []
+
+    def counted(*a, **kw):
+        builds.append(1)
+        return edge_adjacency(*a, **kw)
+    with mock.patch.object(gnn_common, "edge_adjacency", counted):
+        out["syncs_per_step"] = syncs_of(lambda: step(params, opt_state, gb))
+    with mock.patch.object(gnn_common, "from_edge_tensors", nonzero_csr):
+        out["nonzero_syncs_per_step"] = syncs_of(
+            lambda: step(params, opt_state, gb))
+    out["adjacency_builds_per_step"] = len(builds)
+    # the adjacency build and the step over both adjacencies, in turns
+    turns = {"adjacency_ms": [], "nonzero_adjacency_ms": [], "step_ms": [],
+             "nonzero_step_ms": []}
+    for _ in range(3):
+        for old in (False, True):
+            with (mock.patch.object(gnn_common, "from_edge_tensors",
+                                    nonzero_csr)
+                  if old else contextlib.nullcontext()):
+                pre = "nonzero_" if old else ""
+                turns[pre + "adjacency_ms"].append(
+                    wall_ms(lambda: build_adjacency(gb), reps))
+                turns[pre + "step_ms"].append(
+                    wall_ms(lambda: step(params, opt_state, gb), reps))
+    out["in_turns"] = turns
+    check(out["nonzero_syncs_per_step"] - out["syncs_per_step"]
+          == 2 * len(builds) > 0,
+          f"a gcn step makes {out['syncs_per_step']} host syncs, the "
+          f"nonzero adjacency {out['nonzero_syncs_per_step']}, over "
+          f"{len(builds)} adjacency builds")
+    gbm = masked_batch(gb, SEED + 8)
+    runs = []
+    for patch in (contextlib.nullcontext(), mock.patch.object(
+            gnn_common, "from_edge_tensors", nonzero_csr)):
+        with patch:
+            loss, grads = loss_grads(lambda p, b: gcn_loss(p, b, cfg),
+                                     params, gbm)
+        runs.append([loss] + grads)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "a gcn step on a masked batch differs over the nonzero adjacency")
+    out["masked_step_bit_equal"] = True
+    del runs, gbm
+    out["masked"] = masked_kernels("gcn_layers", gb,
+                                   (cfg.d_hidden, cfg.n_classes), SEED + 9)
     # each kernel at the step's four shapes: forward and transposed graph,
     # d = d_hidden (layer 0) and n_classes (layer 1)
     adj = build_adjacency(gb)
@@ -2087,8 +2259,9 @@ def gcn_layers(dev, reps, flush):
         residue_scratch(g.m, d)[1] for g in (adj.fwd, adj.bwd)
         for d in (cfg.d_hidden, cfg.n_classes))
     emit("gcn_layers", **out)
-    check(out["launches_per_step"] == {k: 4 for k in GNN_KERNELS},
-          f"a gcn step launched {out['launches_per_step']}, not 4 each")
+    want = gnn_launches(arch, shape.shape_id)
+    check(out["launches_per_step"] == want,
+          f"a gcn step launched {out['launches_per_step']}, not {want}")
     return out
 
 
@@ -2132,7 +2305,8 @@ def run_gcn_path(dev):
     and gradients on the kernels against the plain aggregation on the same
     card, and kill-and-resume at full_graph_sm. Returns the launches."""
     arch = get_arch("gcn-cora")
-    tr, run = trainer_run(arch, "ogb_products", GCN_STEPS, dev, per_step=4)
+    tr, run = trainer_run(arch, "ogb_products", GCN_STEPS, dev,
+                          per_step=gnn_launches(arch, "ogb_products"))
     diffs = kernel_vs_plain(tr, gcn_loss, dev)
     del tr
 
@@ -2226,8 +2400,8 @@ def trainer_run(arch, shape_id, steps, dev, per_step=None):
     run alone: (trainer, record). Every loss must be finite and every
     grad_norm above 0. Every grad_norm must be finite too, except where
     NORM_OVERFLOWS lists the run and norm_overflow_witness shows that only
-    the float32 sum of squares overflowed. ``per_step``: the launches of
-    each GNN kernel a step must make."""
+    the float32 sum of squares overflowed. ``per_step``: the launches each
+    GNN kernel must make a step (``gnn_launches``), by kernel."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2244,9 +2418,9 @@ def trainer_run(arch, shape_id, steps, dev, per_step=None):
     check(tr.device.type == "cuda", "the Trainer did not run on the GPU")
     if per_step is not None:
         for k in GNN_KERNELS:
-            check(launches.get(k) == per_step * steps,
+            check(launches.get(k) == per_step[k] * steps,
                   f"{k} launched {launches.get(k, 0)} times in {steps} "
-                  f"{name} steps, not {per_step} a step")
+                  f"{name} steps, not {per_step[k]} a step")
     losses = [m["loss"] for m in log]
     norms = [m["grad_norm"] for m in log]
     check(len(log) == steps and all(np.isfinite(losses)),
@@ -2313,7 +2487,7 @@ def run_gnn_zoo(dev, smi, reps, flush):
     runs = {}
     for shape_id in ("ogb_products", "full_graph_sm"):
         tr, run = trainer_run(gin, shape_id, GCN_STEPS, dev,
-                              per_step=2 * gin.model_cfg.n_layers - 1)
+                              per_step=gnn_launches(gin, shape_id))
         runs[shape_id] = run
         emit("gnn_zoo", part="gin_train", card=smi, arch="gin-tu",
              shape=shape_id, steps=GCN_STEPS, **run)

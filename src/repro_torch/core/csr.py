@@ -186,11 +186,15 @@ def from_edge_tensors(rows: torch.Tensor, cols: torch.Tensor,
 
     Unlike ``from_edges`` nothing goes to the host and nothing is
     symmetrised or deduplicated: direction and multi-edges are kept, and a
-    stable sort by row keeps duplicate edges in their input order. Dropping
-    the masked edges is the one host sync (the kept count)."""
-    keep = mask.nonzero().squeeze(1)
-    rows, cols = rows[keep], cols[keep]
-    src, order = torch.sort(rows.to(torch.int32), stable=True)
+    stable sort by row keeps duplicate edges in their input order. The CSR
+    keeps all E edge slots, so its size does not depend on the mask and no
+    value is read: a masked edge is keyed to row n, which the stable sort
+    puts after every live edge, so ``row_ptr[n]`` is the live count and the
+    slots from it on are dead (``src_idx`` n). ``m`` counts the dead slots
+    too; ``deg``, ``ell_pad`` and the aggregation kernels read only the live
+    ones. The live part is what dropping the masked edges first gives."""
+    key = torch.where(mask, rows.to(torch.int32), n)
+    src, order = torch.sort(key, stable=True)
     col_idx = cols.to(torch.int32)[order]
     bounds = torch.arange(n + 1, dtype=torch.int32, device=src.device)
     row_ptr = torch.searchsorted(src, bounds, out_int32=True)

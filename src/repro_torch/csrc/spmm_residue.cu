@@ -247,16 +247,20 @@ void launch_columns(int sms, cudaStream_t st, const int32_t* row_ptr,
 }  // namespace
 
 // Launches the three passes on `stream` of the current device, which has
-// `sms` SMs; does not synchronise; returns cudaGetLastError(). x is
-// [n_src, d] and y [n, d], row-major; row_ptr has n + 1 entries; part holds
-// 2 * segments * d floats and part_row segments int32s, with segments *
-// seg >= row_ptr[n] - row_ptr[0].
+// `sms` SMs; does not synchronise; returns cudaGetLastError() and sets
+// *launches to the kernels it launched (a row and a segment pass per
+// 4 * S columns, then the merge). x is [n_src, d] and y [n, d], row-major;
+// row_ptr has n + 1 entries; part holds 2 * segments * d floats and
+// part_row segments int32s, with segments * seg >= row_ptr[n] - row_ptr[0].
+// Slots at row_ptr[n] and beyond (dead slots) are never read: the row pass
+// stops at each row's end and the segment pass at row_ptr[n].
 extern "C" int spmm_residue_launch(const void* row_ptr, const void* src_idx,
                                    const void* col_idx, const void* x,
                                    void* y, void* part, void* part_row, int n,
                                    int n_src, int d, int k_max,
                                    long long segments, int seg, int sms,
-                                   void* stream) {
+                                   void* stream, int* launches) {
+  *launches = 0;
   if (n <= 0 || d <= 0 || n_src <= 0 || segments <= 0) return 0;
   const auto* rp = static_cast<const int32_t*>(row_ptr);
   const auto* si = static_cast<const int32_t*>(src_idx);
@@ -287,9 +291,12 @@ extern "C" int spmm_residue_launch(const void* row_ptr, const void* src_idx,
 #undef REPRO_COLUMNS
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
+    *launches += 2;
   }
   residue_merge_kernel<<<repro_torch::resident_blocks(residue_merge_kernel,
                                                       segments * 32, 256, sms),
                          256, 0, st>>>(rp, pf, pr, yf, d, segments, seg);
-  return static_cast<int>(cudaGetLastError());
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) *launches += 1;
+  return err;
 }

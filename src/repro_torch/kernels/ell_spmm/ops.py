@@ -5,12 +5,17 @@ exactly, with the contract of ``repro/kernels/ell_spmm/ops.py``: the ELL
 slab covers positions < k_max (``ell_spmm``), the residue (positions >=
 k_max, heavy hubs) is added after it (``spmm_residue``), the same
 bounded-probe + fallback split as the BFS bottom-up. A CUDA tensor
-launches the kernels (or raises); a CPU tensor takes their plain versions.
-``ell`` passes a slab already built by ``core.csr.ell_pad(g, k_max)``.
+launches the kernels (or raises); a CPU tensor takes their plain versions;
+a meta tensor (the dry-run) runs the custom op ``repro_torch::ell_spmm``,
+whose fake implementation gives the kernel's [n, d] output, so that a
+counting trace sees one op that reads the kernel's inputs and writes its
+output, with the FLOPs of ``slab_flops``. ``ell`` passes a slab already
+built by ``core.csr.ell_pad(g, k_max)``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.csr import CSRGraph, ell_pad
 from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda
@@ -19,10 +24,32 @@ from repro_torch.kernels.spmm_residue.ops import spmm_residue
 from repro_torch.kernels.spmm_residue.ref import spmm_residue_ref
 
 
+@torch.library.custom_op("repro_torch::ell_spmm", mutates_args=())
+def _slab_on_meta(neigh: torch.Tensor, valid: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    raise ValueError("repro_torch::ell_spmm runs on meta tensors only; "
+                     "call ell_spmm")
+
+
+@_slab_on_meta.register_fake
+def _(neigh, valid, x):
+    return x.new_empty((neigh.shape[0], x.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.ell_spmm)
+def slab_flops(neigh_shape, valid_shape, x_shape, *args, **kwargs) -> int:
+    """2 * n * k_max * d: a multiply-add for every slab slot and column,
+    valid or not (an upper bound on the slab's own sum)."""
+    n, k_max = neigh_shape
+    return 2 * n * k_max * x_shape[1]
+
+
 def ell_spmm(neigh: torch.Tensor, valid: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     if neigh.device.type == "cuda":
         return ell_spmm_cuda(neigh, valid, x)
+    if neigh.device.type == "meta":
+        return _slab_on_meta(neigh, valid, x)
     if neigh.device.type == "cpu":
         return ell_spmm_ref(neigh, valid, x)
     raise ValueError(f"no ell_spmm for device {neigh.device}")

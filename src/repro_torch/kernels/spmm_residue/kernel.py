@@ -29,12 +29,24 @@ def residue_scratch(m: int, d: int) -> tuple[int, int]:
     return segments, 4 * (2 * segments * d + segments)
 
 
+def residue_launches(d: int) -> int:
+    """Kernels one fold launches at width ``d`` (with n, m and the source
+    rows all > 0), as ``spmm_residue_launch`` reckons them: a row and a
+    segment pass per block of up to 4 * S columns, S = min(32, pow2 >= d),
+    then the merge."""
+    sub = 1
+    while sub < d and sub < 32:
+        sub *= 2
+    return 2 * common.cdiv(d, sub * min(common.cdiv(d, sub), 4)) + 1
+
+
 def _launcher():
     global _entry
     if _entry is None:
         fn = common.load_library().spmm_residue_launch
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       ctypes.c_longlong, _I, _I, _P]
+                       ctypes.c_longlong, _I, _I, _P,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
         _entry = fn
     return _entry
@@ -47,7 +59,9 @@ def spmm_residue_cuda(row_ptr: torch.Tensor, src_idx: torch.Tensor,
     >= k_max into ``y`` in place and returns it. row_ptr int32[n+1],
     src_idx and col_idx int32[m], x float32[n_src, d], y float32[n, d],
     all contiguous on one CUDA device. Raises on anything else. Its
-    scratch (``residue_scratch``) comes from ``torch.empty``."""
+    scratch (``residue_scratch``) comes from ``torch.empty``. Adds to the
+    launch count the kernels the C entry reports it launched
+    (``residue_launches(d)`` of them)."""
     if x.dim() != 2 or y.dim() != 2:
         raise ValueError("x and y must be 2-D")
     n, d = y.shape
@@ -67,12 +81,14 @@ def spmm_residue_cuda(row_ptr: torch.Tensor, src_idx: torch.Tensor,
     part = torch.empty(2 * segments * d, dtype=torch.float32, device=dev)
     part_row = torch.empty(segments, dtype=torch.int32, device=dev)
     launch = _launcher()
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = launch(row_ptr.data_ptr(), src_idx.data_ptr(),
                      col_idx.data_ptr(), x.data_ptr(), y.data_ptr(),
                      part.data_ptr(), part_row.data_ptr(), n, n_src, d,
                      int(k_max), segments, SEG, common.sm_count(dev),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     torch.cuda.current_stream(dev).cuda_stream,
+                     ctypes.byref(launched))
+    common.LAUNCHES["spmm_residue"] += launched.value
     common.check_launch("spmm_residue", err)
-    common.LAUNCHES["spmm_residue"] += 1
     return y

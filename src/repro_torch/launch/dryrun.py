@@ -30,10 +30,16 @@ Each model cell records:
     int, which it reads on the host), the same affine rule at 1 and 2
     layers.
 
-A cell whose step needs tensor values (the GNN adjacency's ``nonzero``)
-is ``status: "skipped"`` with a ``skip_reason`` naming that op, beside
-the fields above; every other cell that traced is ``"ok"``. A shape the
-reference skips keeps its reason. A cell that raises is recorded as
+The GCN and GIN steps trace like the others: their adjacency is a
+fixed-size CSR (``core/csr.py::from_edge_tensors``) and their aggregation
+kernels run as custom ops on meta tensors, each counted as one op with
+the FLOPs of its registered formula (``counted_kernel_flops`` names the
+rule: ``ell_spmm`` 2 * n * k_max * d, ``spmm_residue`` 2 * m * d, upper
+bounds). A cell whose step needs tensor values (an op ``CountingMode``
+raises ``DataDependentOp`` on) is ``status: "skipped"`` with a
+``skip_reason`` naming that op, beside the fields above; no cell of the
+registry does today, so the only skipped cells are the shapes the
+reference skips, which keep its reason. A cell that raises is recorded as
 ``"error"`` and the run exits nonzero.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
@@ -53,6 +59,8 @@ from pathlib import Path
 from repro_torch.configs.base import (get_arch, list_archs, make_step,
                                       step_arg_specs)
 from repro_torch.distributed.sharding import tree_shardings
+from repro_torch.kernels.ell_spmm.ops import slab_flops
+from repro_torch.kernels.spmm_residue.ops import residue_flops
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.bfs_dryrun import DEFAULT_OUT
 from repro_torch.launch.flops import analytic_flops
@@ -60,6 +68,9 @@ from repro_torch.launch.mesh import fake_process_group, make_production_mesh
 from repro_torch.train.sharded import make_sharded_step
 
 _LM = ("lm-dense", "lm-moe")
+# the FLOP formula registered for each kernel's custom op, whose rule the
+# record states
+KERNEL_FLOP_RULES = {"ell_spmm": slab_flops, "spmm_residue": residue_flops}
 
 
 def _mesh_tag(multi_pod: bool) -> str:
@@ -75,7 +86,13 @@ def _count(arch, shape) -> dict:
         cm.hold(args)
         step(*args)
     return dict(flops=cm.flops, hbm_bytes=cm.hbm_bytes,
-                peak_bytes=cm.peak_bytes, ops=cm.ops)
+                peak_bytes=cm.peak_bytes, ops=cm.ops, kernels=cm.kernels)
+
+
+def kernel_flops(kernels: dict) -> dict:
+    """``CountingMode.kernels`` with each kernel's FLOP rule."""
+    return {k: dict(v, rule=" ".join(KERNEL_FLOP_RULES[k].__doc__.split()))
+            for k, v in kernels.items()}
 
 
 def counted_step(arch, shape) -> dict:
@@ -103,11 +120,14 @@ def counted_step(arch, shape) -> dict:
         return dict(counted_flops_global=None,
                     counted_skip_reason=f"the step runs {e}, which meta "
                                         f"tensors cannot give")
-    return dict(counted_flops_global=c["flops"],
-                counted_hbm_bytes_global=c["hbm_bytes"],
-                counted_peak_bytes_global=c["peak_bytes"],
-                counted_ops=c["ops"], counted_rule=rule,
-                trace_s=round(time.time() - t0, 2))
+    out = dict(counted_flops_global=c["flops"],
+               counted_hbm_bytes_global=c["hbm_bytes"],
+               counted_peak_bytes_global=c["peak_bytes"],
+               counted_ops=c["ops"], counted_rule=rule,
+               trace_s=round(time.time() - t0, 2))
+    if c.get("kernels"):
+        out["counted_kernel_flops"] = kernel_flops(c["kernels"])
+    return out
 
 
 def _layers(arch, k: int):

@@ -39,10 +39,11 @@ sent:
 
 A Python loop runs its trips for real, so no trip count is recovered. A
 kernel wrapper given meta tensors runs its custom op's fake (meta)
-implementation, which counts as the kernel: one read of its inputs and
-one write of its outputs. An op whose result the host reads or whose
-output shape depends on tensor values cannot run on meta tensors: it
-raises ``DataDependentOp``.
+implementation, which counts as the kernel: one read of its inputs, one
+write of its outputs and the FLOPs of the formula registered for it, if
+any (``kernels`` keeps each kernel's ops and FLOPs). An op whose result
+the host reads or whose output shape depends on tensor values cannot run
+on meta tensors: it raises ``DataDependentOp``.
 """
 from __future__ import annotations
 
@@ -212,6 +213,9 @@ class _OpInfo:
         self.alias = (func.namespace == "_c10d_functional"
                       and self.functional is None)
         self.flops = flop_registry.get(packet)
+        # a port kernel's custom op (``repro_torch::<kernel>``)
+        self.kernel = (packet.__name__ if func.namespace == "repro_torch"
+                       else None)
         self.view = func.is_view or packet.__name__ in _NO_WRITE
         self.composite = (self.flops is None and not self.c10d
                           and func.namespace != "_c10d_functional"
@@ -225,14 +229,16 @@ class _OpInfo:
 
 class CountingMode(TorchDispatchMode):
     """Counts one traced region (see the module docstring): ``flops``,
-    ``hbm_bytes``, ``collectives`` (a ``CollectiveStats``), ``peak_bytes``
-    and ``ops``. Not reentrant: one trace a mode."""
+    ``hbm_bytes``, ``collectives`` (a ``CollectiveStats``), ``peak_bytes``,
+    ``ops`` and ``kernels`` ({kernel: {"ops", "flops"}} of the port
+    kernels' custom ops). Not reentrant: one trace a mode."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.hbm_bytes = 0
         self.ops = 0
+        self.kernels: dict[str, dict] = {}
         self.collectives = CollectiveStats()
         self.peak_bytes = 0
         self.live_bytes = 0
@@ -307,8 +313,13 @@ class CountingMode(TorchDispatchMode):
             return out
         if info.alias:
             return out
-        if info.flops is not None:
-            self.flops += info.flops(*args, **kwargs, out_val=out)
+        flops = (0 if info.flops is None
+                 else info.flops(*args, **kwargs, out_val=out))
+        self.flops += flops
+        if info.kernel:
+            k = self.kernels.setdefault(info.kernel, dict(ops=0, flops=0))
+            k["ops"] += 1
+            k["flops"] += flops
         if info.view:
             for t in _tensors(out):
                 self._track(t)

@@ -169,8 +169,10 @@ def edge_adjacency(senders: torch.Tensor, receivers: torch.Tensor,
                    edge_mask: torch.Tensor, n_nodes: int,
                    k_max: int = ELL_K_MAX) -> Adjacency:
     """Both CSRs of the given edges over ``n_nodes`` rows and their slabs,
-    built on the edges' device; masked edges are dropped, direction and
-    multi-edges kept. Two host syncs (the live edge count of each CSR)."""
+    built on the edges' device; direction and multi-edges kept. Each CSR
+    keeps every edge slot, the masked edges dead past ``row_ptr[n]``
+    (``core.csr.from_edge_tensors``), so no value is read: no host sync,
+    and meta tensors trace."""
     fwd = from_edge_tensors(receivers, senders, edge_mask, n_nodes)
     bwd = from_edge_tensors(senders, receivers, edge_mask, n_nodes)
     return Adjacency(fwd=fwd, fwd_ell=ell_pad(fwd, k_max), bwd=bwd,

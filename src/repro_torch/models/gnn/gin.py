@@ -10,7 +10,7 @@ owner_gather_scatter`` as the reference's does: without a mesh,
 ``common.sum_aggregate`` (the ELL slab kernel and its residue fold, forward
 and backward) over the adjacency ``build_adjacency`` makes once a batch;
 under the sharded step, the same kernels over the rank's own edges. Layer
-0 sums the input features, which need no gradient, so a step launches each
+0 sums the input features, which need no gradient, so a step calls each
 kernel ``n_layers`` times forward and ``n_layers - 1`` times backward.
 Parameters are a flat dict named as the reference's tree: ``eps``
 [n_layers], ``mlps.{i}.{j}.w`` / ``.b`` and ``heads.{i}.w`` / ``.b``.

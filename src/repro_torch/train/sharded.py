@@ -32,9 +32,10 @@ share of the loss is 1/N of it. The losses and updated parameters are the
 unsharded step's up to the order of float sums; the metrics are summed over
 the ranks (the grad norm is global already).
 
-The GNN's adjacency build (``nonzero``) and the ELL kernels run on each
-rank's own tensors; the dry-run (``launch/dryrun.py``) traces this step on
-meta tensors over a fake process group.
+The GNN's adjacency build (a fixed-size CSR: no host read) and the ELL
+kernels run on each rank's own tensors; the dry-run (``launch/dryrun.py``)
+traces this step on meta tensors over a fake process group, the GNNs'
+included.
 """
 from __future__ import annotations
 

@@ -243,9 +243,13 @@ def test_dryrun_cli(runs):
     assert long["skip_reason"] == jbase.get_arch("llama3-405b").shape(
         "long_500k").skip_reason
     gcn = recs["gcn-cora__full_graph_sm__pod2x16x16"]
-    assert gcn["counted_flops_global"] is None
-    assert "nonzero" in gcn["counted_skip_reason"]
-    assert gcn["status"] == "skipped" and "nonzero" in gcn["skip_reason"]
+    assert gcn["status"] == "ok" and gcn["sharded"]["mode"] == "split"
+    assert gcn["counted_flops_global"] > 0
+    assert 0.25 <= gcn["model_to_counted_ratio"] <= 2
+    assert set(gcn["counted_kernel_flops"]) == {"ell_spmm", "spmm_residue"}
+    assert None not in gcn["memory"].values()
+    assert None not in gcn["roofline"].values()
+    assert gcn["collective"]["num_collectives"] > 0
     assert gcn["memory"]["alias_bytes"] == 0 and not gcn["donate"]
 
 

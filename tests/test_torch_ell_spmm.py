@@ -164,13 +164,16 @@ def test_adjacency_is_the_live_edges_and_their_transpose():
     adj = build_adjacency(gb, k_max=4)
     for g, rows, cols in ((adj.fwd, rcv, snd), (adj.bwd, snd, rcv)):
         rp, ci = g.row_ptr.numpy(), g.col_idx.numpy()
-        assert rp[-1] == mask.sum() == g.m
+        # a fixed-size CSR: every edge slot kept, the masked ones dead
+        # after row_ptr[n] (row n)
+        assert rp[-1] == mask.sum() and g.m == len(mask)
         for v in range(30):
             live = (rows == v) & mask
             # multi-edges kept, in their input order (a stable sort by row)
             assert ci[rp[v]:rp[v + 1]].tolist() == cols[live].tolist()
-        assert torch.equal(g.src_idx, torch.repeat_interleave(
-            torch.arange(30, dtype=torch.int32), g.deg.long()))
+        assert torch.equal(g.src_idx, torch.cat([torch.repeat_interleave(
+            torch.arange(30, dtype=torch.int32), g.deg.long()),
+            torch.full((len(mask) - rp[-1],), 30, dtype=torch.int32)]))
     assert adj.fwd_ell[0].shape == (30, 4) and adj.k_max == 4
 
 

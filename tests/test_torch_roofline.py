@@ -23,6 +23,7 @@ from repro.launch.roofline import parse_collectives
 from repro_torch.configs import base as tbase
 from repro_torch.configs.reduced import reduce_arch
 from repro_torch.kernels.bottom_up_probe.ops import bottom_up_probe
+from repro_torch.launch import dryrun
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.dryrun import _count, counted_step
 from repro_torch.launch.flops import analytic_flops
@@ -164,11 +165,22 @@ def test_layer_rule_is_exact(arch_id):
         assert got["counted_ops"] == want["ops"], shape
 
 
-def test_counted_step_gnn_names_its_host_value():
+def test_counted_step_gnn_names_its_host_value(monkeypatch):
+    """The GNN steps read no value (a fixed-size adjacency, the kernels'
+    meta ops, counted with their FLOP rules); a step that does is named."""
     arch = reduce_arch("gcn-cora")
+    got = counted_step(arch, arch.shapes[0])
+    assert got["counted_flops_global"] > 0
+    kernels = got["counted_kernel_flops"]
+    assert set(kernels) == {"ell_spmm", "spmm_residue"}
+    assert kernels["ell_spmm"]["rule"].startswith("2 * n * k_max * d")
+    assert kernels["spmm_residue"]["rule"].startswith("2 * m * d")
+    monkeypatch.setattr(dryrun, "make_step", lambda arch, shape: (
+        lambda *args: torch.nonzero(torch.empty(4, device="meta"))))
     got = counted_step(arch, arch.shapes[0])
     assert got["counted_flops_global"] is None
     assert "nonzero" in got["counted_skip_reason"]
+    monkeypatch.undo()
     arch = reduce_arch("egnn")
     got = counted_step(arch, arch.shapes[0])
     assert got["counted_flops_global"] > 0
