@@ -36,6 +36,7 @@ from repro_torch.core.csr import CSRGraph, WeightedCSRGraph
 from repro_torch.core.hybrid import ALPHA_DEFAULT, BETA_DEFAULT
 from repro_torch.core.msbfs import MSBFSResult, msbfs_pipelined
 from repro_torch.core.packed import MODES, adaptive_lane_pool
+from repro_torch.obs import spans
 from repro_torch.traversal.sssp import DEFAULT_LANES, sssp_pipelined
 
 __all__ = ["LaneEngine", "as_engine", "pad_roots"]
@@ -149,31 +150,33 @@ class LaneEngine:
         device. By default ``parent`` is zero-width: every analytics
         workload reads depths only, and the parent derivation is most of
         a sweep's time; pass ``derive_parents=True`` for Graph500
-        parents."""
-        roots = np.asarray(roots, np.int32).reshape(-1)
-        if roots.size < 1:
-            raise ValueError("need at least one root")
-        if self.dg2 is not None:
-            from repro_torch.core.dist2d import dist2d_msbfs
-            return dist2d_msbfs(self.dg2, roots, self.mesh, self.mode,
-                                self.alpha, self.beta, self.max_pos,
-                                lanes=self.lanes_for(roots.size),
-                                compress=self.compress,
-                                derive_parents=derive_parents,
-                                recorder=self._recorder("dist2d"))
-        if self.dg is not None:
-            from repro_torch.core.dist_msbfs import dist_msbfs
-            return dist_msbfs(self.dg, roots, self.mesh, self.mode,
-                              self.alpha, self.beta, self.max_pos,
-                              lanes=self.lanes_for(roots.size),
-                              derive_parents=derive_parents,
-                              recorder=self._recorder("dist_msbfs"))
-        return msbfs_pipelined(self.g, roots, mode=self.mode,
-                               alpha=self.alpha, beta=self.beta,
-                               max_pos=self.max_pos,
-                               lanes=self.lanes_for(roots.size),
-                               derive_parents=derive_parents,
-                               recorder=self._recorder("msbfs"))
+        parents. Under the torch profiler the sweep leaves a record of its
+        spans and counters (``obs/spans.py``)."""
+        with spans.sweep("analytics.sweep"):
+            roots = np.asarray(roots, np.int32).reshape(-1)
+            if roots.size < 1:
+                raise ValueError("need at least one root")
+            if self.dg2 is not None:
+                from repro_torch.core.dist2d import dist2d_msbfs
+                return dist2d_msbfs(self.dg2, roots, self.mesh, self.mode,
+                                    self.alpha, self.beta, self.max_pos,
+                                    lanes=self.lanes_for(roots.size),
+                                    compress=self.compress,
+                                    derive_parents=derive_parents,
+                                    recorder=self._recorder("dist2d"))
+            if self.dg is not None:
+                from repro_torch.core.dist_msbfs import dist_msbfs
+                return dist_msbfs(self.dg, roots, self.mesh, self.mode,
+                                  self.alpha, self.beta, self.max_pos,
+                                  lanes=self.lanes_for(roots.size),
+                                  derive_parents=derive_parents,
+                                  recorder=self._recorder("dist_msbfs"))
+            return msbfs_pipelined(self.g, roots, mode=self.mode,
+                                   alpha=self.alpha, beta=self.beta,
+                                   max_pos=self.max_pos,
+                                   lanes=self.lanes_for(roots.size),
+                                   derive_parents=derive_parents,
+                                   recorder=self._recorder("msbfs"))
 
     @property
     def weighted(self) -> bool:
@@ -194,34 +197,36 @@ class LaneEngine:
         sharded engine on a mesh, the 2-D engine on a grid (``compress``
         ships its value exchanges through the sparse codec); the results
         are the same. ``delta`` is a scalar width or a per-lane tuple (None
-        picks the graph default)."""
+        picks the graph default). Under the torch profiler the sweep
+        leaves a record of its spans and counters (``obs/spans.py``)."""
         if self.wg is None:
             raise TypeError(
                 "weighted sweep on an unweighted engine — build the "
                 "LaneEngine from a WeightedCSRGraph (e.g. "
                 "graph.generator.rmat_weighted_graph) to serve "
                 "sssp/weighted-closeness queries")
-        roots = np.asarray(roots, np.int32).reshape(-1)
-        if roots.size < 1:
-            raise ValueError("need at least one source")
-        lanes = self.sssp_lanes_for(roots.size)
-        if self.dwg2 is not None:
-            from repro_torch.core.dist_sssp import dist2d_sssp
-            return dist2d_sssp(self.dwg2, roots, self.mesh, delta=delta,
-                               lanes=lanes, max_pos=self.max_pos,
-                               relax_impl=self.probe_impl,
-                               compress=self.compress,
-                               recorder=self._recorder("dist2d_sssp"))
-        if self.dwg is not None:
-            from repro_torch.core.dist_sssp import dist_sssp
-            return dist_sssp(self.dwg, roots, self.mesh, delta=delta,
-                             lanes=lanes, max_pos=self.max_pos,
-                             relax_impl=self.probe_impl,
-                             recorder=self._recorder("dist_sssp"))
-        return sssp_pipelined(self.wg, roots, delta=delta, lanes=lanes,
-                              max_pos=self.max_pos,
-                              relax_impl=self.probe_impl,
-                              recorder=self._recorder("sssp"))
+        with spans.sweep("analytics.sssp_sweep"):
+            roots = np.asarray(roots, np.int32).reshape(-1)
+            if roots.size < 1:
+                raise ValueError("need at least one source")
+            lanes = self.sssp_lanes_for(roots.size)
+            if self.dwg2 is not None:
+                from repro_torch.core.dist_sssp import dist2d_sssp
+                return dist2d_sssp(self.dwg2, roots, self.mesh, delta=delta,
+                                   lanes=lanes, max_pos=self.max_pos,
+                                   relax_impl=self.probe_impl,
+                                   compress=self.compress,
+                                   recorder=self._recorder("dist2d_sssp"))
+            if self.dwg is not None:
+                from repro_torch.core.dist_sssp import dist_sssp
+                return dist_sssp(self.dwg, roots, self.mesh, delta=delta,
+                                 lanes=lanes, max_pos=self.max_pos,
+                                 relax_impl=self.probe_impl,
+                                 recorder=self._recorder("dist_sssp"))
+            return sssp_pipelined(self.wg, roots, delta=delta, lanes=lanes,
+                                  max_pos=self.max_pos,
+                                  relax_impl=self.probe_impl,
+                                  recorder=self._recorder("sssp"))
 
 
 def as_engine(g_or_engine, **kwargs) -> LaneEngine:

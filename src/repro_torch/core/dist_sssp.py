@@ -302,7 +302,7 @@ def dist_sssp(dwg: DistWeightedGraph, roots, mesh, delta=None,
     (recomputed from the partition); distances, steps, truncation flags
     and traces equal ``sssp_pipelined``'s. ``recorder`` (a
     ``repro_torch.obs.SweepRecorder``) records a ``LayerRecord`` per step,
-    with its exchange bytes; None touches nothing of ``repro_torch.obs``."""
+    with its exchange bytes; None runs no recorder."""
     if delta is None:
         delta = default_delta_dist(dwg)
     return _sweep(

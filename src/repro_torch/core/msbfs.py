@@ -51,7 +51,9 @@ from repro_torch.core.packed import (LANE_WORD_BITS, MODES, depth_slice_words,
                                      lane_counters, num_lane_words,
                                      pack_lanes_np, queue_claims,
                                      select_direction, signed_words,
-                                     to_device, unpack_lanes, word_dtype)
+                                     to_device, to_host, unpack_lanes,
+                                     upload, word_dtype)
+from repro_torch.obs import spans
 
 MAX_LANES = 64          # roots per batch: two 32-bit lane words, or one 64-bit
 PARENT_LANE_CHUNK = 8   # lanes per [m, chunk] buffer of _derive_parents
@@ -202,32 +204,39 @@ def _derive_parents(g: CSRGraph, depth: torch.Tensor, roots,
     [m, chunk] int64 index is built. Min-id matches the serial steps'
     deterministic scatter-min parent choice. A root is seated only in the
     rows that hold it."""
-    n, n_loc = depth.shape[0], g.n
-    roots = _as_roots(roots)
-    num_roots = roots.shape[0]
-    src, col = g.src_idx, g.col_idx
-    colc = col.clamp(max=n - 1)
-    parent = torch.empty((n_loc, num_roots), dtype=torch.int32,
-                         device=g.device)
-    for lo in range(0, num_roots, PARENT_LANE_CHUNK):
-        d = depth[:, lo:lo + PARENT_LANE_CHUNK]
-        d_col = d.index_select(0, colc)                     # [m, c]
-        ok = (d_col >= 0) & (d_col + 1 == d[base:base + n_loc].index_select(
-            0, src))
-        del d_col
-        cand = torch.where(ok, col[:, None], n).to(torch.int32)
-        del ok
-        best = torch.full((n_loc, d.shape[1]), n, dtype=torch.int32,
-                          device=g.device)
-        best.index_reduce_(0, src, cand, "amin")
-        del cand
-        parent[:, lo:lo + PARENT_LANE_CHUNK] = torch.where(best < n, best, -1)
-    keep = (roots >= base) & (roots < base + n_loc)
-    lanes = np.arange(num_roots)[keep]
-    if lanes.size:
-        parent[to_device((roots[keep] - base).astype(np.int64), g.device),
-               to_device(lanes, g.device)] = to_device(roots[keep], g.device)
-    return parent
+    with spans.span("msbfs.parents"):
+        n, n_loc = depth.shape[0], g.n
+        roots = _as_roots(roots)
+        num_roots = roots.shape[0]
+        src, col = g.src_idx, g.col_idx
+        colc = col.clamp(max=n - 1)
+        parent = torch.empty((n_loc, num_roots), dtype=torch.int32,
+                             device=g.device)
+        for lo in range(0, num_roots, PARENT_LANE_CHUNK):
+            with spans.span("parents.gather"):
+                d = depth[:, lo:lo + PARENT_LANE_CHUNK]
+                d_col = d.index_select(0, colc)                 # [m, c]
+                ok = (d_col >= 0) & (
+                    d_col + 1 == d[base:base + n_loc].index_select(0, src))
+                del d_col
+                cand = torch.where(ok, col[:, None], n).to(torch.int32)
+                del ok
+            with spans.span("parents.min"):
+                best = torch.full((n_loc, d.shape[1]), n, dtype=torch.int32,
+                                  device=g.device)
+                best.index_reduce_(0, src, cand, "amin")
+                del cand
+                parent[:, lo:lo + PARENT_LANE_CHUNK] = torch.where(
+                    best < n, best, -1)
+        with spans.span("parents.seat"):
+            keep = (roots >= base) & (roots < base + n_loc)
+            lanes = np.arange(num_roots)[keep]
+            if lanes.size:
+                parent[to_device((roots[keep] - base).astype(np.int64),
+                                 g.device),
+                       to_device(lanes, g.device)] = to_device(roots[keep],
+                                                               g.device)
+        return parent
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +303,8 @@ def msbfs_engine_init(g: CSRGraph, capacity: int,
     """Fresh engine on the graph's device: all lanes idle, an empty root
     queue of ``capacity`` slots, ``lanes`` bit-lanes (W =
     ceil(lanes / LANE_WORD_BITS) lane words per vertex)."""
-    return _fresh_state(g.deg.cpu().numpy(), g.n, g.device, capacity, lanes)
+    return _fresh_state(to_host(g.deg, "msbfs.degrees"), g.n, g.device,
+                        capacity, lanes)
 
 
 def _fresh_state(deg: np.ndarray, n_loc: int, dev, capacity: int,
@@ -367,13 +377,13 @@ def _with_host_view(g: CSRGraph, s: PipelineState) -> PipelineState:
     """Fill in the host degrees and the counters where a carried-in state
     lacks them (one read-back, once)."""
     if s.deg is None:
-        deg = g.deg.cpu().numpy()
+        deg = to_host(g.deg, "msbfs.degrees")
         s = s._replace(deg=deg, deg_total=int(deg.sum(dtype=np.int64)))
     if s.counters is None:
         lanes = s.num_lanes
-        s = s._replace(counters=torch.stack(lane_counters(
+        s = s._replace(counters=to_host(torch.stack(lane_counters(
             g, unpack_lanes(s.frontier, lanes),
-            unpack_lanes(s.visited, lanes))).cpu().numpy())
+            unpack_lanes(s.visited, lanes))), "msbfs.readback"))
     return s
 
 
@@ -480,105 +490,130 @@ def _pipeline_body(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
     rows are OR-folded) and whose counters are summed over the ranks. ``n``
     is the vertex count of the switch rule (default ``g.n``); ``compress``
     ships the 2-D exchanges through the sparse word codec."""
+    with spans.span("msbfs.step"):
+        return _pipeline_phases(g, s, mode, alpha, beta, max_pos, n,
+                                compress)
+
+
+def _pipeline_phases(g: CSRGraph, s: PipelineState, mode: str, alpha: float,
+                     beta: float, max_pos: int, n: int | None,
+                     compress: bool) -> PipelineState:
+    """``_pipeline_body``'s step, one span a phase: the refill, the plan,
+    the packed step (the dispatch), the lane counters, the read-back and
+    the flush."""
     n = g.n if n is None else n
     dev = g.device
     lanes = s.num_lanes
     cap = s.capacity
-    s = _refill(g, _with_host_view(g, s), mode != "bottomup")
+    with spans.span("msbfs.refill"):
+        s = _refill(g, _with_host_view(g, s), mode != "bottomup")
 
-    active = s.lane_qidx < cap
-    e_f, v_f, e_u = s.counters
-    topdown, live = _plan(s, mode, n, alpha, beta)
+    with spans.span("msbfs.plan"):
+        active = s.lane_qidx < cap
+        e_f, v_f, e_u = s.counters
+        topdown, live = _plan(s, mode, n, alpha, beta)
+        spans.count_lanes(live)
 
-    # per-root trace rows are indexed by the lane's own layer counter and
-    # its queue slot, so a root's trace replays its serial run whichever
-    # lane served it and whenever it was claimed
-    trace = [t.copy() for t in (s.trace_dir, s.trace_vf, s.trace_ef,
-                                s.trace_eu)]
-    row = np.clip(s.lane_layer, 0, MAX_TRACE - 1)[active]
-    col = s.lane_qidx[active]
-    for t, vals in zip(trace, (np.where(live, np.where(topdown, 0, 1), -1),
-                               v_f, e_f, e_u)):
-        t[row, col] = vals[active]
+        # per-root trace rows are indexed by the lane's own layer counter
+        # and its queue slot, so a root's trace replays its serial run
+        # whichever lane served it and whenever it was claimed
+        trace = [t.copy() for t in (s.trace_dir, s.trace_vf, s.trace_ef,
+                                    s.trace_eu)]
+        row = np.clip(s.lane_layer, 0, MAX_TRACE - 1)[active]
+        col = s.lane_qidx[active]
+        for t, vals in zip(trace, (np.where(live, np.where(topdown, 0, 1),
+                                            -1), v_f, e_f, e_u)):
+            t[row, col] = vals[active]
 
-    grid = s.comm if isinstance(s.comm, GridComm) else None
-    frontier = s.frontier
-    if grid is not None:
-        # expand: each rank of the grid column gives its own chunk of the
-        # row block, which make up this column block's frontier slice x_j
-        chunk = s.frontier.shape[0] // grid.pc
-        frontier, b_expand = exchange_expand(
-            s.frontier[grid.j * chunk:(grid.j + 1) * chunk], grid.row,
-            compress)
-    new = dispatch_packed_step(g, frontier, s.visited,
-                               pack_lanes_np(topdown & live),
-                               pack_lanes_np(~topdown & live), mode, max_pos)
-    if grid is not None:
-        # fold: the partial rows of the grid row's blocks make the row
-        # block's new frontier
-        new, b_fold = exchange_reduce_or(new, grid.col, compress)
-    new_b = unpack_lanes(new, lanes)
-    visited2 = s.visited | new
-    lane_layer2 = (s.lane_layer + active).astype(np.int32)
-    depth2 = torch.where(new_b, to_device(lane_layer2, dev)[None, :], s.depth)
-    counters = torch.stack(lane_counters(
-        g, new_b, unpack_lanes(visited2, lanes)))
-    nbytes = 0
-    if grid is not None:
-        frontier = new
-        # block degrees are partial, so e_f and e_u sum over the whole
-        # grid; a row block's vertices count once (grid column 0), as does
-        # each expand group's byte total (grid row 0) and each fold
-        # group's (grid column 0): one all-reduce gives the reference's
-        # psums over its axes
-        mask = to_device(np.array([1, grid.j == 0, 1], np.int64), dev)
-        sent = to_device(np.array([b_expand * (grid.i == 0),
-                                   b_fold * (grid.j == 0)], np.int64), dev)
-        total = grid_sum(torch.cat([(counters.long() * mask[:, None])
-                                    .reshape(-1), sent]), grid).cpu().numpy()
-        counters, nbytes = (total[:-2].reshape(3, lanes).astype(np.int32),
-                            int(total[-2:].sum()))
-    else:
-        # on a mesh the ranks own disjoint rows: their new rows in mesh
-        # order are the next frontier, and the counters are the ranks' sums
-        frontier = _global_rows(s, new)
-        if s.comm is not None:
-            counters = psum(counters, s.comm)
-        counters = counters.cpu().numpy()
-    exch_log = s.exch_log
-    if exch_log is not None:
-        exch_log = exch_log.copy()
-        exch_log[min(s.sweep_layers, MAX_TRACE - 1)] += nbytes
+    with spans.span("msbfs.dispatch"):
+        grid = s.comm if isinstance(s.comm, GridComm) else None
+        frontier = s.frontier
+        if grid is not None:
+            # expand: each rank of the grid column gives its own chunk of
+            # the row block, which make up this column block's frontier
+            # slice x_j
+            chunk = s.frontier.shape[0] // grid.pc
+            frontier, b_expand = exchange_expand(
+                s.frontier[grid.j * chunk:(grid.j + 1) * chunk], grid.row,
+                compress)
+        new = dispatch_packed_step(g, frontier, s.visited,
+                                   pack_lanes_np(topdown & live),
+                                   pack_lanes_np(~topdown & live), mode,
+                                   max_pos)
+        if grid is not None:
+            # fold: the partial rows of the grid row's blocks make the row
+            # block's new frontier
+            new, b_fold = exchange_reduce_or(new, grid.col, compress)
 
-    # finish = frontier drained or the per-lane layer cap (the serial loop
-    # bound, and what makes the drain terminate)
-    finished = active & ((counters[1] == 0) | (lane_layer2 >= MAX_TRACE))
-    out_edges, out_layers = s.out_edges, s.out_layers
-    done = np.flatnonzero(finished)
-    if done.size:
-        qidx = s.lane_qidx[done]
-        out_edges, out_layers = out_edges.copy(), out_layers.copy()
-        # visited2's edge count is the sum of degrees less e_u
-        out_edges[qidx] = s.deg_total - counters[2, done]
-        out_layers[qidx] = lane_layer2[done]
-        done_t = to_device(done, dev)
-        s.out_depth.index_copy_(1, to_device(qidx.astype(np.int64), dev),
-                                depth2.index_select(1, done_t))
-        # retire the finished lanes: zero their bits and depths so that
-        # _refill can seat a fresh root on the very next step
-        clear = to_device(~pack_lanes_np(finished), dev)
-        frontier, visited2 = frontier & clear, visited2 & clear
-        depth2.index_fill_(1, done_t, -1)
-        counters = _idle_counters(counters, s.deg_total, done)
-    return s._replace(
-        frontier=frontier, visited=visited2, depth=depth2,
-        lane_layer=np.where(finished, 0, lane_layer2).astype(np.int32),
-        lane_qidx=np.where(finished, cap, s.lane_qidx).astype(np.int32),
-        topdown=topdown, sweep_layers=s.sweep_layers + 1,
-        out_edges=out_edges, out_layers=out_layers, trace_dir=trace[0],
-        trace_vf=trace[1], trace_ef=trace[2], trace_eu=trace[3],
-        counters=counters, exch_bytes=s.exch_bytes + nbytes,
-        exch_log=exch_log)
+    with spans.span("msbfs.counters"):
+        new_b = unpack_lanes(new, lanes)
+        visited2 = s.visited | new
+        lane_layer2 = (s.lane_layer + active).astype(np.int32)
+        depth2 = torch.where(new_b, to_device(lane_layer2, dev)[None, :],
+                             s.depth)
+        counters = torch.stack(lane_counters(
+            g, new_b, unpack_lanes(visited2, lanes)))
+        nbytes = 0
+        if grid is not None:
+            frontier = new
+            # block degrees are partial, so e_f and e_u sum over the whole
+            # grid; a row block's vertices count once (grid column 0), as
+            # does each expand group's byte total (grid row 0) and each
+            # fold group's (grid column 0): one all-reduce gives the
+            # reference's psums over its axes
+            mask = to_device(np.array([1, grid.j == 0, 1], np.int64), dev)
+            sent = to_device(np.array([b_expand * (grid.i == 0),
+                                       b_fold * (grid.j == 0)], np.int64),
+                             dev)
+            counters = grid_sum(torch.cat([(counters.long() * mask[:, None])
+                                           .reshape(-1), sent]), grid)
+        else:
+            # on a mesh the ranks own disjoint rows: their new rows in mesh
+            # order are the next frontier, and the counters are the ranks'
+            # sums
+            frontier = _global_rows(s, new)
+            if s.comm is not None:
+                counters = psum(counters, s.comm)
+    counters = to_host(counters, "msbfs.readback")
+
+    with spans.span("msbfs.flush"):
+        if grid is not None:
+            counters, nbytes = (counters[:-2].reshape(3, lanes)
+                                .astype(np.int32), int(counters[-2:].sum()))
+        exch_log = s.exch_log
+        if exch_log is not None:
+            exch_log = exch_log.copy()
+            exch_log[min(s.sweep_layers, MAX_TRACE - 1)] += nbytes
+
+        # finish = frontier drained or the per-lane layer cap (the serial
+        # loop bound, and what makes the drain terminate)
+        finished = active & ((counters[1] == 0) | (lane_layer2 >= MAX_TRACE))
+        out_edges, out_layers = s.out_edges, s.out_layers
+        done = np.flatnonzero(finished)
+        if done.size:
+            qidx = s.lane_qidx[done]
+            out_edges, out_layers = out_edges.copy(), out_layers.copy()
+            # visited2's edge count is the sum of degrees less e_u
+            out_edges[qidx] = s.deg_total - counters[2, done]
+            out_layers[qidx] = lane_layer2[done]
+            done_t = to_device(done, dev)
+            s.out_depth.index_copy_(1, to_device(qidx.astype(np.int64), dev),
+                                    depth2.index_select(1, done_t))
+            # retire the finished lanes: zero their bits and depths so that
+            # _refill can seat a fresh root on the very next step
+            clear = to_device(~pack_lanes_np(finished), dev)
+            frontier, visited2 = frontier & clear, visited2 & clear
+            depth2.index_fill_(1, done_t, -1)
+            counters = _idle_counters(counters, s.deg_total, done)
+        return s._replace(
+            frontier=frontier, visited=visited2, depth=depth2,
+            lane_layer=np.where(finished, 0, lane_layer2).astype(np.int32),
+            lane_qidx=np.where(finished, cap, s.lane_qidx).astype(np.int32),
+            topdown=topdown, sweep_layers=s.sweep_layers + 1,
+            out_edges=out_edges, out_layers=out_layers, trace_dir=trace[0],
+            trace_vf=trace[1], trace_ef=trace[2], trace_eu=trace[3],
+            counters=counters, exch_bytes=s.exch_bytes + nbytes,
+            exch_log=exch_log)
 
 
 def msbfs_engine_step(g: CSRGraph, state: PipelineState,
@@ -599,8 +634,9 @@ def msbfs_engine_drain(g: CSRGraph, state: PipelineState,
                        max_pos: int = 8) -> PipelineState:
     """Step the engine until every enqueued root has been answered."""
     _check_mode(mode)
-    while not msbfs_engine_idle(state):
-        state = _pipeline_body(g, state, mode, alpha, beta, max_pos)
+    with spans.span("msbfs.drain"):
+        while not msbfs_engine_idle(state):
+            state = _pipeline_body(g, state, mode, alpha, beta, max_pos)
     return state
 
 
@@ -620,13 +656,14 @@ def msbfs_engine_result(g: CSRGraph, state: PipelineState,
                                device=dev))
 
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a[..., :r])).to(dev)
+        return upload(a[..., :r], dev, "msbfs.upload")
 
-    return MSBFSResult(
-        parent=parent, depth=depth, num_layers=up(state.out_layers),
-        edges_traversed=up(state.out_edges), trace_dir=up(state.trace_dir),
-        trace_vf=up(state.trace_vf), trace_ef=up(state.trace_ef),
-        trace_eu=up(state.trace_eu))
+    with spans.span("msbfs.result"):
+        return MSBFSResult(
+            parent=parent, depth=depth, num_layers=up(state.out_layers),
+            edges_traversed=up(state.out_edges),
+            trace_dir=up(state.trace_dir), trace_vf=up(state.trace_vf),
+            trace_ef=up(state.trace_ef), trace_eu=up(state.trace_eu))
 
 
 # ---------------------------------------------------------------------------
@@ -751,15 +788,17 @@ def msbfs_pipelined(g: CSRGraph, roots, mode: str = "hybrid",
     through ``obs.sweeplog.drive_recorded`` and records a ``LayerRecord``
     per layer; the step and the drain share ``_pipeline_body``, so results
     and traces are bit-identical either way. With ``recorder=None`` (the
-    default) nothing of ``repro_torch.obs`` is imported or run."""
+    default) no recorder runs. The phases' spans (``obs/spans.py``) record
+    only while the torch profiler does."""
     _check_mode(mode)
     roots = _as_roots(roots)
     num_roots = roots.shape[0]
     if num_roots < 1:
         raise ValueError("need at least one root")
     lanes = max(1, min(lanes, LANE_WORD_BITS * num_lane_words(num_roots)))
-    state = msbfs_engine_init(g, capacity=num_roots, lanes=lanes)
-    state = msbfs_engine_enqueue(state, roots)
+    with spans.span("msbfs.init"):
+        state = msbfs_engine_init(g, capacity=num_roots, lanes=lanes)
+        state = msbfs_engine_enqueue(state, roots)
     if recorder is None:
         state = msbfs_engine_drain(g, state, mode, alpha, beta, max_pos)
     else:

@@ -34,6 +34,7 @@ from repro_torch.core.hybrid import switch_direction
 from repro_torch.kernels.common import word_planes
 from repro_torch.kernels.msbfs_probe.ops import msbfs_probe
 from repro_torch.kernels.segment_or.ops import segment_or_rows
+from repro_torch.obs import spans
 
 # the width of a lane word, from the environment as in the reference; there
 # is no switch at run time (a test of the other width runs in a child)
@@ -228,6 +229,22 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def upload(a: np.ndarray, device: torch.device, name: str) -> torch.Tensor:
+    """A host array on ``device`` by a plain copy from pageable memory,
+    which on a GPU waits for the queued work: traced as the sync span
+    ``name`` and counted in ``host_syncs`` (``obs/spans.py``)."""
+    with spans.host_sync(name):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def to_host(t: torch.Tensor, name: str) -> np.ndarray:
+    """A device tensor read back to the host as a numpy array, which waits
+    for the queued work: traced as the sync span ``name`` and counted in
+    ``host_syncs`` (``obs/spans.py``)."""
+    with spans.host_sync(name):
+        return t.cpu().numpy()
 
 
 def dispatch_packed_step(g: CSRGraph, frontier: torch.Tensor,

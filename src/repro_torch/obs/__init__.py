@@ -12,6 +12,10 @@ they all land, for every engine and for the serving front door:
   (``recorder=`` kwarg; off by default, zero-cost when disabled).
 * :mod:`repro_torch.obs.traceviz` — Chrome trace-event JSON export (Perfetto-
   loadable) of sweeps and service request lifecycles, + JSONL sink.
+* :mod:`repro_torch.obs.spans` — spans and counters inside the engines'
+  hot path (the analytics entry, each engine step and its phases, the
+  parent derivation, every blocking host sync), recorded only while the
+  torch profiler records.
 
 ``Telemetry`` is the bundle the stack threads through — pass one to
 ``LaneEngine(telemetry=...)`` / ``ServiceConfig(telemetry=...)`` and it
@@ -23,6 +27,19 @@ flight log::
     eng.sweep(roots)
     print(tel.metrics_text())
     write_chrome_trace("sweep.json", sweep_trace_events(tel.last_sweep()))
+
+The hot path's own spans need no bundle: run ``torch.profiler.profile``
+around the work. The spans land in the profiler's trace beside the
+device's kernels, on the same clock (``prof.export_chrome_trace(path)``
+writes it for Perfetto), and each ``LaneEngine.sweep`` or ``.sssp_sweep``
+under the profiler leaves a record of its spans and counters (host syncs,
+live and pooled lanes), which ``spans.recent(k)`` returns::
+
+    with torch.profiler.profile() as prof:
+        eng.sweep(roots)
+    prof.export_chrome_trace("sweep_spans.json")
+    rec = spans.recent(1)[0]
+    print(rec.counts["host_syncs"], [(s.name, s.ns) for s in rec.spans])
 """
 from __future__ import annotations
 
@@ -34,6 +51,8 @@ from repro_torch.obs.doctor import (DoctorReport, Finding, diagnose, diagnose_lo
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
                                MetricsRegistry, default_registry,
                                metrics_text)
+# re-exported, outside ``__all__``, which lists the reference's names
+from repro_torch.obs import spans as spans
 from repro_torch.obs.server import ObservabilityServer
 from repro_torch.obs.slo import SLOConfig, SLOMonitor
 from repro_torch.obs.sweeplog import (LayerRecord, SweepRecorder, drive_recorded,

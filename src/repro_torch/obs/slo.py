@@ -28,8 +28,6 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 
-from repro_torch.serving.stats import percentile
-
 __all__ = ["SLOConfig", "SLOMonitor"]
 
 # target keys, wire-stable (metric label values + health JSON keys)
@@ -103,6 +101,9 @@ class SLOMonitor:
 
     def observed(self) -> dict[str, float]:
         """Current observed value per configured target key."""
+        # imported here: the serving package imports the engines, whose
+        # spans import this package
+        from repro_torch.serving.stats import percentile
         out = {}
         for key in self.config.targets():
             if key == P99_SOJOURN:

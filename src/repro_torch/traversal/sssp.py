@@ -52,8 +52,9 @@ import torch
 from repro_torch.core.csr import WeightedCSRGraph
 from repro_torch.core.exchange import (GridComm, exchange_expand_values,
                                        exchange_reduce_min, grid_sum, pmin)
-from repro_torch.core.packed import queue_claims, to_device
+from repro_torch.core.packed import queue_claims, to_device, to_host, upload
 from repro_torch.device import resolve_device
+from repro_torch.obs import spans
 from repro_torch.traversal.semiring import INF, tropical_relax
 
 __all__ = [
@@ -144,7 +145,7 @@ def default_delta(wg: WeightedCSRGraph) -> float:
     ``max_w / avg_degree``; 1.0 on edgeless or all-zero-weight graphs."""
     if wg.m == 0:
         return 1.0
-    w_max = float(wg.weights.max())
+    w_max = float(to_host(wg.weights.max(), "sssp.weights_max"))
     avg_deg = wg.m / max(wg.n, 1)
     delta = w_max / max(avg_deg, 1.0)
     return delta if delta > 0 else 1.0
@@ -297,7 +298,7 @@ def _with_host_view(wg: WeightedCSRGraph, s: SSSPState,
         b_hi = to_device(_bucket_ceiling(s.lane_bucket, lane_d, active),
                          wg.device)
         pending = ((s.dist < b_hi) & ~s.relaxed).any(dim=0)
-        s = s._replace(iterating=pending.cpu().numpy() & active)
+        s = s._replace(iterating=to_host(pending, "sssp.pending") & active)
     return s
 
 
@@ -482,103 +483,126 @@ def _sssp_body(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
     device back once. ``wg`` is the graph, or the rank's block of it for a
     sharded state; ``compress`` ships a sharded step's exchanges through
     the sparse value codec."""
+    with spans.span("sssp.step"):
+        return _sssp_phases(wg, s, delta, max_pos, relax_impl, max_steps,
+                            compress)
+
+
+def _sssp_phases(wg: WeightedCSRGraph, s: SSSPState, delta, max_pos: int,
+                 relax_impl: str, max_steps: int,
+                 compress: bool) -> SSSPState:
+    """``_sssp_body``'s step, one span a phase: the refill (prepare), the
+    plan, the relaxes, the elementwise update, the read-back and the
+    flush."""
     dev = wg.device
     cap = s.capacity
-    s = prepare_step(wg, s, delta)
-    p = plan_step(wg, s, delta)
-    lane_d, active, iterating, settling, b_hi = p[:5]
+    with spans.span("sssp.prepare"):
+        s = prepare_step(wg, s, delta)
+    with spans.span("sssp.plan"):
+        p = plan_step(wg, s, delta)
+        lane_d, active, iterating, settling, b_hi = p[:5]
+        spans.count_lanes(active)
 
     # every candidate folds into the new distances by min, which is exact
     # in any order
-    sent = None
-    if s.comm is None:
-        new_dist = s.dist.clone()
-        for _, w, vals in phase_inputs(wg, s, delta, p):
-            torch.minimum(new_dist, _relax(wg, w, vals, max_pos, relax_impl),
-                          out=new_dist)
-    else:
-        cand, sent = _sharded_candidates(wg, s, delta, p, max_pos,
-                                         relax_impl, compress)
-        new_dist = torch.minimum(s.dist, cand)
+    with spans.span("sssp.relax"):
+        sent = None
+        if s.comm is None:
+            new_dist = s.dist.clone()
+            for _, w, vals in phase_inputs(wg, s, delta, p):
+                torch.minimum(new_dist,
+                              _relax(wg, w, vals, max_pos, relax_impl),
+                              out=new_dist)
+        else:
+            cand, sent = _sharded_candidates(wg, s, delta, p, max_pos,
+                                             relax_impl, compress)
+            new_dist = torch.minimum(s.dist, cand)
 
-    changed = new_dist < s.dist
-    # sources just relaxed are served at their distance; a vertex whose
-    # distance improved re-enters its bucket's request set
-    relaxed = (s.relaxed | (p.light_pending & to_device(iterating, dev))) \
-        & ~changed
+    with spans.span("sssp.update"):
+        changed = new_dist < s.dist
+        # sources just relaxed are served at their distance; a vertex whose
+        # distance improved re-enters its bucket's request set
+        relaxed = (s.relaxed | (p.light_pending & to_device(iterating, dev))) \
+            & ~changed
 
-    # settling lanes jump to the bucket of their least unsettled distance
-    # (empty buckets are never visited), at least one bucket on. XLA
-    # compiles the reference's floor(min / delta) for a static delta into
-    # floor(min * f32(1/delta)), so the port multiplies by that reciprocal.
-    # The next bucket's request set is non-empty iff the least distance not
-    # yet relaxed lies below its ceiling: it decides whether the lane
-    # iterates on the next step, and is read in the same read-back. On a
-    # grid both minima are taken over the grid column's row blocks first.
-    mins = torch.stack([
-        torch.where(new_dist >= b_hi, new_dist, INF).amin(dim=0),
-        torch.where(relaxed, INF, new_dist).amin(dim=0)])
-    if isinstance(s.comm, GridComm):
-        mins = pmin(mins, s.comm.row)
-    mu, least_open = mins[0], mins[1]
-    bucket = to_device(s.lane_bucket, dev)
-    advance = to_device(settling, dev) & torch.isfinite(mu)
-    recip = to_device(np.float32(1) / lane_d, dev)
-    jump = torch.floor(torch.where(advance, mu, 0.0) * recip).to(torch.int32)
-    next_bucket = torch.where(advance, torch.maximum(jump, bucket + 1), bucket)
-    b_next = (next_bucket.to(torch.float32) + 1) * to_device(lane_d, dev)
-    back = torch.stack([mu.view(torch.int32), next_bucket,
-                        (least_open < b_next).to(torch.int32)]).reshape(-1)
-    if sent is not None:         # a sharded step's bytes, in the same read
-        back = torch.cat([back, sent.view(torch.int32)])
-    back = back.cpu().numpy()
-    nbytes = int(back[3 * s.num_lanes:].view(np.int64).sum())
-    back = back[:3 * s.num_lanes].reshape(3, -1)
-    mu_h, next_bucket = back[0].view(np.float32), back[1]
+        # settling lanes jump to the bucket of their least unsettled
+        # distance (empty buckets are never visited), at least one bucket
+        # on. XLA compiles the reference's floor(min / delta) for a static
+        # delta into floor(min * f32(1/delta)), so the port multiplies by
+        # that reciprocal. The next bucket's request set is non-empty iff
+        # the least distance not yet relaxed lies below its ceiling: it
+        # decides whether the lane iterates on the next step, and is read
+        # in the same read-back. On a grid both minima are taken over the
+        # grid column's row blocks first.
+        mins = torch.stack([
+            torch.where(new_dist >= b_hi, new_dist, INF).amin(dim=0),
+            torch.where(relaxed, INF, new_dist).amin(dim=0)])
+        if isinstance(s.comm, GridComm):
+            mins = pmin(mins, s.comm.row)
+        mu, least_open = mins[0], mins[1]
+        bucket = to_device(s.lane_bucket, dev)
+        advance = to_device(settling, dev) & torch.isfinite(mu)
+        recip = to_device(np.float32(1) / lane_d, dev)
+        jump = torch.floor(torch.where(advance, mu, 0.0) * recip).to(
+            torch.int32)
+        next_bucket = torch.where(advance, torch.maximum(jump, bucket + 1),
+                                  bucket)
+        b_next = (next_bucket.to(torch.float32) + 1) * to_device(lane_d, dev)
+        back = torch.stack([mu.view(torch.int32), next_bucket,
+                            (least_open < b_next).to(torch.int32)]).reshape(-1)
+        if sent is not None:     # a sharded step's bytes, in the same read
+            back = torch.cat([back, sent.view(torch.int32)])
+    back = to_host(back, "sssp.readback")
 
-    exhausted = settling & ~np.isfinite(mu_h)
-    lane_steps = (s.lane_steps + active).astype(np.int32)
-    # a capped lane's distances are a partial relaxation: its flush is
-    # marked truncated
-    capped = active & (lane_steps >= max_steps) & ~exhausted
-    finished = exhausted | capped
+    with spans.span("sssp.flush"):
+        nbytes = int(back[3 * s.num_lanes:].view(np.int64).sum())
+        back = back[:3 * s.num_lanes].reshape(3, -1)
+        mu_h, next_bucket = back[0].view(np.float32), back[1]
 
-    # one trace row per engine step of the lane's root, in its output
-    # column, so a finished lane's trace persists
-    trace_bucket, trace_phase = s.trace_bucket.copy(), s.trace_phase.copy()
-    row = np.clip(s.lane_steps, 0, MAX_SSSP_TRACE - 1)[active]
-    col = s.lane_qidx[active]
-    trace_bucket[row, col] = s.lane_bucket[active]
-    trace_phase[row, col] = np.where(iterating, 0, 1)[active]
+        exhausted = settling & ~np.isfinite(mu_h)
+        lane_steps = (s.lane_steps + active).astype(np.int32)
+        # a capped lane's distances are a partial relaxation: its flush is
+        # marked truncated
+        capped = active & (lane_steps >= max_steps) & ~exhausted
+        finished = exhausted | capped
 
-    out_steps, out_truncated = s.out_steps, s.out_truncated
-    done = np.flatnonzero(finished)
-    if done.size:
-        qidx = s.lane_qidx[done]
-        out_steps, out_truncated = out_steps.copy(), out_truncated.copy()
-        out_steps[qidx] = lane_steps[done]
-        out_truncated[qidx] = capped[done]
-        done_t = to_device(done, dev)
-        s.out_dist.index_copy_(1, to_device(qidx.astype(np.int64), dev),
-                               new_dist.index_select(1, done_t))
-        # retire the finished lanes, so _refill can seat a source there on
-        # the very next step
-        new_dist.index_fill_(1, done_t, INF)
-        relaxed.index_fill_(1, done_t, False)
-    exch_log = s.exch_log
-    if exch_log is not None:
-        exch_log = exch_log.copy()
-        exch_log[min(s.sweep_steps, MAX_SSSP_TRACE - 1)] += nbytes
-    return s._replace(
-        dist=new_dist, relaxed=relaxed,
-        lane_bucket=np.where(finished, 0, next_bucket).astype(np.int32),
-        lane_steps=np.where(finished, 0, lane_steps).astype(np.int32),
-        lane_qidx=np.where(finished, cap, s.lane_qidx).astype(np.int32),
-        sweep_steps=s.sweep_steps + 1, out_steps=out_steps,
-        out_truncated=out_truncated, trace_bucket=trace_bucket,
-        trace_phase=trace_phase,
-        iterating=back[2].astype(bool) & active & ~finished,
-        exch_bytes=s.exch_bytes + nbytes, exch_log=exch_log)
+        # one trace row per engine step of the lane's root, in its output
+        # column, so a finished lane's trace persists
+        trace_bucket, trace_phase = (s.trace_bucket.copy(),
+                                     s.trace_phase.copy())
+        row = np.clip(s.lane_steps, 0, MAX_SSSP_TRACE - 1)[active]
+        col = s.lane_qidx[active]
+        trace_bucket[row, col] = s.lane_bucket[active]
+        trace_phase[row, col] = np.where(iterating, 0, 1)[active]
+
+        out_steps, out_truncated = s.out_steps, s.out_truncated
+        done = np.flatnonzero(finished)
+        if done.size:
+            qidx = s.lane_qidx[done]
+            out_steps, out_truncated = out_steps.copy(), out_truncated.copy()
+            out_steps[qidx] = lane_steps[done]
+            out_truncated[qidx] = capped[done]
+            done_t = to_device(done, dev)
+            s.out_dist.index_copy_(1, to_device(qidx.astype(np.int64), dev),
+                                   new_dist.index_select(1, done_t))
+            # retire the finished lanes, so _refill can seat a source there
+            # on the very next step
+            new_dist.index_fill_(1, done_t, INF)
+            relaxed.index_fill_(1, done_t, False)
+        exch_log = s.exch_log
+        if exch_log is not None:
+            exch_log = exch_log.copy()
+            exch_log[min(s.sweep_steps, MAX_SSSP_TRACE - 1)] += nbytes
+        return s._replace(
+            dist=new_dist, relaxed=relaxed,
+            lane_bucket=np.where(finished, 0, next_bucket).astype(np.int32),
+            lane_steps=np.where(finished, 0, lane_steps).astype(np.int32),
+            lane_qidx=np.where(finished, cap, s.lane_qidx).astype(np.int32),
+            sweep_steps=s.sweep_steps + 1, out_steps=out_steps,
+            out_truncated=out_truncated, trace_bucket=trace_bucket,
+            trace_phase=trace_phase,
+            iterating=back[2].astype(bool) & active & ~finished,
+            exch_bytes=s.exch_bytes + nbytes, exch_log=exch_log)
 
 
 def sssp_engine_step(wg: WeightedCSRGraph, state: SSSPState, delta,
@@ -597,8 +621,10 @@ def sssp_engine_drain(wg: WeightedCSRGraph, state: SSSPState, delta,
                       max_steps: int = MAX_SSSP_STEPS) -> SSSPState:
     """Step the engine until every enqueued source has been answered."""
     _check_delta(delta)
-    while not sssp_engine_idle(state):
-        state = _sssp_body(wg, state, delta, max_pos, relax_impl, max_steps)
+    with spans.span("sssp.drain"):
+        while not sssp_engine_idle(state):
+            state = _sssp_body(wg, state, delta, max_pos, relax_impl,
+                               max_steps)
     return state
 
 
@@ -610,14 +636,15 @@ def sssp_engine_result(state: SSSPState) -> SSSPResult:
     dev = state.dist.device
 
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return upload(a, dev, "sssp.upload")
 
-    return SSSPResult(sources=up(state.queue[:r]),
-                      dist=state.out_dist[:, :r].contiguous(),
-                      steps=up(state.out_steps[:r]),
-                      truncated=up(state.out_truncated[:r]),
-                      trace_bucket=up(state.trace_bucket[:, :r]),
-                      trace_phase=up(state.trace_phase[:, :r]))
+    with spans.span("sssp.result"):
+        return SSSPResult(sources=up(state.queue[:r]),
+                          dist=state.out_dist[:, :r].contiguous(),
+                          steps=up(state.out_steps[:r]),
+                          truncated=up(state.out_truncated[:r]),
+                          trace_bucket=up(state.trace_bucket[:, :r]),
+                          trace_phase=up(state.trace_phase[:, :r]))
 
 
 def sssp_pipelined(wg: WeightedCSRGraph, roots, delta=None,
@@ -634,17 +661,20 @@ def sssp_pipelined(wg: WeightedCSRGraph, roots, delta=None,
     ``recorder`` (a ``repro_torch.obs.SweepRecorder``) records a
     ``LayerRecord`` per engine step by stepping instead of the drain (the
     shared ``_sssp_body``: distances, steps and traces bit-identical);
-    None (the default) touches nothing in ``repro_torch.obs``."""
+    None (the default) runs no recorder. The phases' spans
+    (``obs/spans.py``) record only while the torch profiler does."""
     roots = _as_roots(roots)
     num_roots = roots.shape[0]
     if num_roots < 1:
         raise ValueError("need at least one source")
     if delta is None:
-        delta = default_delta(wg)
+        with spans.span("sssp.delta"):
+            delta = default_delta(wg)
     lanes = max(1, min(lanes, num_roots))
     delta = delta if isinstance(delta, tuple) else float(delta)
-    state = sssp_engine_init(wg, capacity=num_roots, lanes=lanes)
-    state = sssp_engine_enqueue(state, roots)
+    with spans.span("sssp.init"):
+        state = sssp_engine_init(wg, capacity=num_roots, lanes=lanes)
+        state = sssp_engine_enqueue(state, roots)
     if recorder is None:
         state = sssp_engine_drain(wg, state, delta, max_pos, relax_impl,
                                   max_steps)
