@@ -28,6 +28,13 @@ phase prints one JSON line:
            layer by layer, with the host syncs of a step, msbfs_probe and
            segment_or's two forms each beside its bound, then the parent
            derivation;
+  parents_kernel  the parent derivation kernel (X5) at the parents
+           cell's shape, on the depths of one drained 64-root sweep:
+           bit-equal to its plain version (the chunked library gathers
+           and scatter-min the port ran before, so also the library
+           time), both timed
+           (median, cold L2) with the narrowing and scan passes apart,
+           beside its bound, with its launches a call and both peaks;
   batched  the batched Graph500 harness (run_graph500 batched=True, 64
            lanes) with the launch counts of that run alone, then every
            lane against the serial bfs, traces, validator and oracle, and
@@ -404,6 +411,11 @@ from repro_torch.kernels.bottom_up_probe.kernel import (  # noqa: E402
     bottom_up_probe_cuda)
 from repro_torch.kernels.bottom_up_probe.ref import (  # noqa: E402
     bottom_up_probe_ref, probe_rounds)
+from repro_torch.kernels.derive_parents.kernel import (  # noqa: E402
+    narrow_depths_cuda, narrow_stride, scan_parents_cuda)
+from repro_torch.kernels.derive_parents.ops import derive_parents  # noqa: E402
+from repro_torch.kernels.derive_parents.ref import (  # noqa: E402
+    derive_parents_ref)
 from repro_torch.kernels.ell_spmm.kernel import ell_spmm_cuda  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (spmm_aggregate,  # noqa: E402
                                               spmm_aggregate_ref)
@@ -1470,6 +1482,55 @@ def batched_layers(g, roots, chk, reps, flush):
          msbfs_probe_layers=chk.rec["msbfs_probe"]["layers"],
          derive_parents_ms=derive_ms, derive_parents_peak_bytes=peak)
     return len(rows)
+
+
+def parents_cost(g, depth) -> tuple[float, float, dict]:
+    """X5's bounds in ms: the depths and the CSR read once and the parents
+    written once; and that plus one narrowed row per edge slot of a row
+    with a lane to find (a row with none reads no neighbour), as if none of
+    those reads hit L2."""
+    n, r = depth.shape
+    live = (depth >= 1).any(dim=1)
+    slots = int(torch.where(live, g.deg, 0).sum())
+    parts = dict(depth=4 * n * r, csr=4 * (g.n + 1 + g.m), parent=4 * n * r)
+    once = sum(parts.values())
+    parts.update(narrowed_rows=narrow_stride(r) * slots, slots=slots)
+    return (bound_ms(once, 0)[0],
+            bound_ms(once + parts["narrowed_rows"], 0)[0], parts)
+
+
+def run_parents_kernel(g, roots, reps, flush):
+    """X5 at the parents cell's shape: the depths of one drained sweep of
+    ``roots`` in as many lanes, the kernel against its plain version (bit
+    for bit), both timed, beside the bound."""
+    depth = msbfs_pipelined(g, roots, "hybrid", lanes=len(roots),
+                            derive_parents=False).depth
+    args = (g.row_ptr, g.col_idx, g.src_idx, depth)
+    before = common.LAUNCHES["derive_parents"]
+    got = derive_parents(*args)
+    torch.cuda.synchronize()
+    launches = common.LAUNCHES["derive_parents"] - before
+    want = derive_parents_ref(*args)
+    check(torch.equal(got, want), "derive_parents differs from its plain "
+                                  "version")
+    del want
+    narrow = narrow_depths_cuda(depth)
+    bound, bound_rows, parts = parents_cost(g, depth)
+    kernel_ms = time_ms(lambda: derive_parents(*args), reps, flush)
+    plain_ms = time_ms(lambda: derive_parents_ref(*args),
+                       max(reps // 4, 3), flush)
+    emit("parents_kernel", roots=len(roots), n=g.n, m=g.m, bit_equal=True,
+         launches_per_call=launches, ms=kernel_ms,
+         narrow_ms=time_ms(lambda: narrow_depths_cuda(depth), reps, flush),
+         scan_ms=time_ms(lambda: scan_parents_cuda(
+             g.row_ptr, g.col_idx, narrow, depth.shape[1]), reps, flush),
+         bound_ms=bound, bound_by="bytes", bound_rows_ms=bound_rows,
+         bound_bytes=parts,
+         roofline_pct=100 * bound / kernel_ms, plain_ms=plain_ms,
+         library_ms=plain_ms,
+         peak_bytes=peak_of(lambda: derive_parents(*args))[2],
+         plain_peak_bytes=peak_of(lambda: derive_parents_ref(*args))[2],
+         reached=int((depth >= 0).sum()))
 
 
 def run_batched_path(g, args, serial_res):
@@ -3863,7 +3924,7 @@ def run_examples(args) -> dict:
              SERVE_KERNELS),
             ("distributed_bfs", distributed_bfs, ["--ndev", "1"],
              SERIAL_KERNELS))
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(common.LAUNCHES, 0)
     rows = {}
     for name, module, argv, kernels in runs:
         torch.cuda.synchronize()
@@ -4972,6 +5033,7 @@ def main(argv=None) -> int:
                             flush)
     for name, r in chk.rec.items():
         emit("msbfs_kernel", name=name, bit_equal=True, **r)
+    run_parents_kernel(g, sweep_roots, args.reps, flush)
 
     delta = default_delta(wg)
     rchk = RelaxKernelCheck(wg)

@@ -53,10 +53,10 @@ from repro_torch.core.packed import (LANE_WORD_BITS, MODES, depth_slice_words,
                                      select_direction, signed_words,
                                      to_device, to_host, unpack_lanes,
                                      upload, word_dtype)
+from repro_torch.kernels.derive_parents.ops import derive_parents
 from repro_torch.obs import spans
 
-MAX_LANES = 64          # roots per batch: two 32-bit lane words, or one 64-bit
-PARENT_LANE_CHUNK = 8   # lanes per [m, chunk] buffer of _derive_parents
+MAX_LANES = 64  # roots per batch: two 32-bit lane words, or one 64-bit
 
 
 class MSBFSResult(NamedTuple):
@@ -198,36 +198,17 @@ def _derive_parents(g: CSRGraph, depth: torch.Tensor, roots,
     or a rank's block of it (whose pad slots name the sentinel n and so
     never win).
 
-    Chunked over lanes to bound the [m, chunk] candidate buffers (four
-    int32 and one bool, about 5 GB at 2^25 edge slots and 8 lanes). The
-    min goes through ``index_reduce_`` with the 1-D row index, so no
-    [m, chunk] int64 index is built. Min-id matches the serial steps'
-    deterministic scatter-min parent choice. A root is seated only in the
-    rows that hold it."""
+    One op for every caller (``kernels/derive_parents``): on the card a
+    kernel that narrows the depths to a byte a lane and scans each row's
+    neighbours with a min per lane in registers; on the CPU the chunked
+    plain version. Min-id matches the serial steps' deterministic
+    scatter-min parent choice. A root is seated only in the rows that hold
+    it."""
     with spans.span("msbfs.parents"):
-        n, n_loc = depth.shape[0], g.n
+        n_loc = g.n
         roots = _as_roots(roots)
         num_roots = roots.shape[0]
-        src, col = g.src_idx, g.col_idx
-        colc = col.clamp(max=n - 1)
-        parent = torch.empty((n_loc, num_roots), dtype=torch.int32,
-                             device=g.device)
-        for lo in range(0, num_roots, PARENT_LANE_CHUNK):
-            with spans.span("parents.gather"):
-                d = depth[:, lo:lo + PARENT_LANE_CHUNK]
-                d_col = d.index_select(0, colc)                 # [m, c]
-                ok = (d_col >= 0) & (
-                    d_col + 1 == d[base:base + n_loc].index_select(0, src))
-                del d_col
-                cand = torch.where(ok, col[:, None], n).to(torch.int32)
-                del ok
-            with spans.span("parents.min"):
-                best = torch.full((n_loc, d.shape[1]), n, dtype=torch.int32,
-                                  device=g.device)
-                best.index_reduce_(0, src, cand, "amin")
-                del cand
-                parent[:, lo:lo + PARENT_LANE_CHUNK] = torch.where(
-                    best < n, best, -1)
+        parent = derive_parents(g.row_ptr, g.col_idx, g.src_idx, depth, base)
         with spans.span("parents.seat"):
             keep = (roots >= base) & (roots < base + n_loc)
             lanes = np.arange(num_roots)[keep]

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"bottom_up_probe": 0, "topdown_scan": 0,
                             "msbfs_probe": 0, "segment_or": 0,
                             "semiring_relax": 0, "relax_fallback": 0,
-                            "ell_spmm": 0, "spmm_residue": 0}
+                            "ell_spmm": 0, "spmm_residue": 0,
+                            "derive_parents": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}

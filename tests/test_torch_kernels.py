@@ -245,9 +245,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     names = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
-    assert names == ["bottom_up_probe.cu", "ell_spmm.cu", "msbfs_probe.cu",
-                     "relax_fallback.cu", "segment_or.cu", "semiring_relax.cu",
-                     "spmm_residue.cu", "topdown_scan.cu"]
+    assert names == ["bottom_up_probe.cu", "derive_parents.cu", "ell_spmm.cu",
+                     "msbfs_probe.cu", "relax_fallback.cu", "segment_or.cu",
+                     "semiring_relax.cu", "spmm_residue.cu", "topdown_scan.cu"]
     assert set(common.LAUNCHES) == {p[:-3] for p in names}
     assert "arch=compute_90a,code=sm_90a" in common.NVCC_FLAGS
     assert common.cdiv(33, 32) == 2 and common.cdiv(64, 32) == 2
